@@ -1,19 +1,17 @@
 """Quantify fp32 drift of the porous/multicomponent engine vs an fp64
-oracle (VERDICT r2 item 6: the reference hard-requires fp64 here,
-``single_component.cl:1-7``; the TPU build runs fp32 by default).
+oracle (the reference hard-requires fp64 here, ``single_component.cl:1-7``;
+this framework runs fp32 by default).
 
 Runs the reference-like workload (porous 2-fluid + first-belt Shan-Chen +
 eating) twice on CPU — once fp64 (``JAX_ENABLE_X64=1`` subprocess), once
 fp32 — through the same XLA step, and reports relative rho drift and mass
 conservation at log-spaced horizons.
 
-Round 5 adds the production-scale modes VERDICT r4 #4 asked for:
-
 - ``--c5`` swaps the composition to BASELINE config 5 (porous 2-fluid +
   Shan-Chen + screened-Poisson repulsion force, no eating) so the drift
-  is measured on the mandated workload, at any ``--size``.
-- ``--conservation`` runs fp32 ONLY, on the default backend (TPU when
-  available, kernel path), and tracks the global mass of each fluid with
+  is measured on that workload, at any ``--size``.
+- ``--conservation`` runs fp32 ONLY, on the default device, and tracks
+  the global mass of each fluid with
   :func:`lb2d_tpu.utils.metrics.accumulated_sum(accumulate="f64")` —
   config-5 physics conserves mass exactly (BGK + Guo forcing + streaming
   are all zero-mass-source), so the reported relative drifts ARE the
@@ -34,13 +32,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 CHECKPOINTS = (100, 300, 1000, 3000, 10000)
 
 
-def build_sim(size, backend="xla"):
+def build_sim(size):
     import numpy as np
     from lb2d_tpu.models.multicomponent import Fluid, SimulationRunner
 
     c5 = os.environ.get("DRIFT_C5", "0") == "1"
     sim = SimulationRunner(nx=size, ny=size, L_lb=size, T_lb=1.0,
-                           num_populations=2, porous=True, backend=backend)
+                           num_populations=2, porous=True)
     for i in range(2):
         sim.add_fluid(Fluid(sim, i, nu_e=1.0 / 6.0, epsilon=0.8,
                             nu_fluid=1.0 / 6.0, K=10.0, Fe=0.1))
@@ -76,7 +74,7 @@ def conservation(size, steps):
     except Exception:
         pass
 
-    sim = build_sim(size, backend="auto")
+    sim = build_sim(size)
 
     def masses():
         # sum over directions+fields via per-fluid rho is refreshed by

@@ -1,11 +1,12 @@
 #!/bin/bash
-# Regenerate the committed verification artifacts in docs/ on a TPU host.
+# Regenerate the committed verification artifacts in docs/ (any JAX device;
+# a GPU makes the N=200 Poiseuille run quick).
 # Counterpart of the reference's rendered proof
 # (docs/opencl_dimensionless_verification.ipynb,
 # pictures/resolution_convergence.png, the cs205 vortex movies): the same
 # acceptance results as committed, viewable artifacts.
 #
-# Usage: bash docs/regen.sh      (from the repo root; ~10 min on one chip)
+# Usage: bash docs/regen.sh      (from the repo root)
 set -e
 cd "$(dirname "$0")/.."
 

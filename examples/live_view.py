@@ -1,7 +1,7 @@
 """Watch a simulation live — terminal ANSI rendering or an HTML animation.
 
 The reference opens a vispy OpenGL window (`field_visualizer.py`); in a
-headless TPU environment the equivalents are a truecolor terminal loop and
+headless environment the equivalents are a truecolor terminal loop and
 a self-contained HTML page (every frame rendered on device, only uint8
 images cross to the host).
 

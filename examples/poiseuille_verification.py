@@ -13,8 +13,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import sys
-
 import numpy as np
 
 from lb2d_tpu.models import PipeFlow
@@ -48,9 +46,8 @@ def main(out="poiseuille_verification.png"):
         pred = pref * y * (y - D)
         rms = float(np.sqrt(((mean_u - pred) ** 2).mean()))
         errors.append(rms)
-        ax1.plot(y, mean_u, ".", ms=3, label=f"N={N} ({sim.last_mlups:.0f} MLUPS)")
-        print(f"N={N}: omega={sim.omega:.5f} rms={rms:.2e} "
-              f"mlups={sim.last_mlups:.0f}")
+        ax1.plot(y, mean_u, ".", ms=3, label=f"N={N}")
+        print(f"N={N}: omega={sim.omega:.5f} rms={rms:.2e}")
     yy = np.linspace(0, D, 200)
     ax1.plot(yy, pref * yy * (yy - D), "k-", lw=1, label="theory")
     ax1.set_xlabel("y [m]")

@@ -8,10 +8,10 @@ spectral-repulsion coupling of the multicomponent runner
 reference could not represent (8192^2 needs ~5 GB for f alone; its GPU
 had 6 GB for everything, no multi-device support, fp64-only kernels).
 
-Per step here: the fused multicomponent Pallas kernel (stream + hydro +
-Shan-Chen interaction + Darcy/Forchheimer drag + Guo-forced BGK, in-place
-HBM update, per shard inside shard_map) plus one screened-Poisson solve
-via the Bailey 4-step matmul DFT on the MXU.
+Per step here: the multicomponent XLA step (stream + hydro + Shan-Chen
+interaction + Darcy/Forchheimer drag + Guo-forced BGK), partitioned by
+GSPMD when the mesh has several devices, plus one screened-Poisson solve
+(``jnp.fft`` on one device, the matmul DFT on a multi-device mesh).
 
 Usage: python examples/porous_poisson.py [--size 2048] [--steps 50]
 """

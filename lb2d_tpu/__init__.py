@@ -1,15 +1,15 @@
-"""lb2d_tpu — a TPU-native 2-D lattice-Boltzmann framework (JAX/XLA/Pallas).
+"""lb2d_tpu — a 2-D lattice-Boltzmann framework in JAX/XLA.
 
 A from-scratch rebuild of the capabilities of the ``LB_D2Q9`` reference
 project (latticeboltzmann/2d-lb): D2Q9/D2Q25 BGK simulations with a
 physical-units nondimensionalization layer, a model zoo (pipe flow, obstacle
 flows, advection-diffusion, Fisher waves, multifield range expansion, LBM and
 spectral Poisson solvers, Shan-Chen multicomponent / porous media), device-side
-rendering, and multi-chip domain decomposition over a TPU mesh.
+rendering, and multi-device domain decomposition over a device mesh.
 
 Architecture: state is a pytree (populations ``f[Q, ny, nx]`` + aux fields);
 each model builds a pure ``step(state) -> state`` that XLA fuses into a few
-HBM passes; ``run(n)`` is a donated-buffer ``lax.fori_loop`` — the host is
+memory passes; ``run(n)`` is a donated-buffer ``lax.fori_loop`` — the host is
 never inside the hot loop (unlike the reference's per-kernel blocking
 dispatch, ``opencl_dim.py:372-387``).
 """

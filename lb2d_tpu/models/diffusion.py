@@ -3,7 +3,7 @@
 Rebuilds ``reaction_diffusion/diffusion.py`` (classes ``Diffusion``,
 ``Advection_Diffusion``, ``Reaction_Diffusion``,
 ``Reaction_Advection_Diffusion``, ``Reaction_Advection_Diffusion_Stochastic``)
-on the TPU-native core: scalar density advected by an *imposed* velocity
+on the shared XLA core: scalar density advected by an *imposed* velocity
 field with linear feq (``D2Q9_diffusion.cl:1-38``), hydro = density only
 (``:41-68``), optional Fisher growth ``G rho (1-rho)`` distributed by lattice
 weights (``:95-124``) and optional multiplicative noise
@@ -25,7 +25,7 @@ cargo-cult"):
   bugs. We implement the *intended* semantics (the formulas in the kernels).
 * The stochastic class passes the physical ``Dg`` straight to the kernel
   (``diffusion.py:568,587``) without unit conversion; we preserve that
-  behavior (``Dg`` is interpreted as the lattice-units noise amplitude) and
+  behavior (``Dg`` is taken as the lattice-units noise amplitude) and
   note it here.
 """
 
@@ -49,46 +49,6 @@ __all__ = [
     "ReactionAdvectionDiffusion",
     "ReactionAdvectionDiffusionStochastic",
 ]
-
-
-def make_noisy_temporal_step(ny, nx, omega, u_lb, v_lb, lb_G, lb_Dg, K,
-                             xla_step, dtype, interpret=None):
-    """K-step temporal-blocked kernel for the stochastic Fisher family
-    (state ``(f, key)``), with the periodic seam patch.
-
-    The kernel draws its normals from the on-core TPU PRNG
-    (``pltpu.prng_random_bits`` + Box-Muller), seeded per
-    (sweep, chunk, stage) from a key-derived int32; the seam band is
-    recomputed with K plain XLA steps whose noise comes from ``jax.random``
-    — a different (but identically-distributed) realization. See
-    DIVERGENCES.md: within ~2K rows of the y-wrap the stitched noise
-    realization is not a single consistent SPDE sample; marginal statistics
-    are unaffected.
-    """
-    from ..ops.fused import make_temporal_pipe_step
-
-    kw = {} if interpret is None else {"interpret": interpret}
-    kernel = make_temporal_pipe_step(
-        ny=ny, nx=nx, omega=float(omega), physics="noisy_fisher",
-        u_lb=float(u_lb), v_lb=float(v_lb), lb_G=float(lb_G),
-        lb_Dg=float(lb_Dg), k_steps=K, dtype=dtype, **kw)
-    B = 3 * K
-    band_idx = jnp.asarray(np.arange(-B, B) % ny)
-    patch_rows = jnp.asarray(np.arange(-K, K) % ny)
-
-    def stepK(state):
-        f, key = state
-        key, ks, kb = jax.random.split(key, 3)
-        seed = jax.lax.bitcast_convert_type(
-            jax.random.bits(ks, (1, 1), jnp.uint32), jnp.int32)
-        out = kernel(f, seed)
-        bstate = (f[:, band_idx, :], kb)
-        for _ in range(K):
-            bstate = xla_step(bstate)
-        out = out.at[:, patch_rows, :].set(bstate[0][:, B - K:B + K, :])
-        return (out, key)
-
-    return stepK
 
 
 class Diffusion(LBModel):
@@ -122,8 +82,6 @@ class Diffusion(LBModel):
         self._init_velocity()
         self.state = self._init_state(rng)
         super().__init__()
-        if getattr(self, "backend", None) == "resident":
-            self._install_resident_run()
 
     # -- scaling hooks ---------------------------------------------------------
     def set_characteristic_length_time(self):
@@ -164,103 +122,7 @@ class Diffusion(LBModel):
     def _source(self, rho):
         return None  # no reaction
 
-    def _lb_G(self):
-        return 0.0  # no reaction
-
     def make_step(self):
-        # deterministic members of the family (constant imposed velocity,
-        # constant growth rate) can run the fused temporal kernel on TPU
-        from ..ops.fused import make_temporal_pipe_step, supports_temporal
-
-        if self._resident_capable():
-            # the runner is swapped for the grid-resident kernel after
-            # LBModel.__init__ (_install_resident_run); make_step only
-            # provides the oracle single-step. The reference's actual
-            # scientific workloads run this family at 96^2-512^2
-            # (reaction_diffusion/diffusion.py:56), squarely in the
-            # residency window.
-            self.backend = "resident"
-            return self._make_xla_step()
-        # deepest K that fits (2048^2: K=4 9.1k / K=6 12.4k / K=8 14.2k
-        # MLUPS); the 6K-row seam-patch recompute stays negligible
-        for K in (8, 6, 4):
-            if (jax.default_backend() == "tpu"
-                    and supports_temporal(self.ny, self.nx, K)
-                    and self.ny >= 24 * K):
-                self.backend = "temporal"
-                return self._make_temporal_step(K, make_temporal_pipe_step)
-        self.backend = "xla"
-        return self._make_xla_step()
-
-    def _resident_capable(self):
-        from ..ops.fused import supports_resident
-
-        # Alignment must be exact (nx % 128, ny % 8): the flow family's
-        # edge-padding trick is a wall trick — unsound for periodic
-        # physics, where padded lanes would wrap into the domain.
-        return (jax.default_backend() == "tpu"
-                and supports_resident(self.ny, self.nx, False,
-                                      self.lattice.q))
-
-    def _install_resident_run(self, interpret=None):
-        """Whole-run-in-ONE-launch resident kernel (cf.
-        ``PipeFlow._install_resident_run``). The diffusion family is fully
-        periodic and the resident kernel's full-grid slice-concat wrap IS
-        the exact periodic stream — unlike the K-sweep temporal path, no
-        seam patch is needed and the kernel is *exact* vs the XLA oracle."""
-        from ..ops.fused import make_resident_pipe_step
-
-        kw = {} if interpret is None else {"interpret": interpret}
-        run_k = make_resident_pipe_step(
-            ny=self.ny, nx=self.nx, omega=float(self.omega),
-            physics="diffusion", u_lb=float(np.asarray(self.u).ravel()[0]),
-            v_lb=float(np.asarray(self.v).ravel()[0]),
-            lb_G=float(self._lb_G()), dtype=self.dtype, **kw)
-        self._run_compiled = jax.jit(run_k, donate_argnums=0)
-        self.backend = "resident"
-        self.steps_per_call = 1
-
-    def _make_temporal_step(self, K, make_temporal_pipe_step,
-                            interpret=None):
-        """Temporal-blocked kernel + seam patch.
-
-        The diffusion domain is fully periodic, so the K-step sweep's wrap
-        seam (rows within K-1 of y = 0) sees garbage/stale halos the flow
-        kernel's walls would have rewritten. Fix: recompute a 6K-row band
-        around the seam with K plain XLA steps on a wrapped slice (its
-        central rows are exact — the influence cone grows one row per step)
-        and splice the affected 2(K-1) rows back in. Band cost: 6K rows of
-        ny — negligible.
-        """
-        import jax as _jax
-
-        kw = {} if interpret is None else {"interpret": interpret}
-        kernel = make_temporal_pipe_step(
-            ny=self.ny, nx=self.nx, omega=float(self.omega),
-            physics="diffusion", u_lb=float(np.asarray(self.u).ravel()[0]),
-            v_lb=float(np.asarray(self.v).ravel()[0]),
-            lb_G=float(self._lb_G()), k_steps=K, dtype=self.dtype, **kw)
-        xla_step = self._make_xla_step()
-        B = 3 * K
-        band_idx = jnp.asarray(np.arange(-B, B) % self.ny)
-        # garbage/stale halos contaminate one row per internal stage on each
-        # side of the seam: rows [-K, K) need the patch
-        patch_rows = jnp.asarray(np.arange(-K, K) % self.ny)
-
-        def stepK(f):
-            out = kernel(f)
-            band = f[:, band_idx, :]
-            for _ in range(K):
-                band = xla_step(band)
-            out = out.at[:, patch_rows, :].set(
-                band[:, B - K:B + K, :])
-            return out
-
-        self.steps_per_call = K
-        self._single_step = xla_step
-        return stepK
-
-    def _make_xla_step(self):
         u, v = self.u, self.v
         omega = jnp.asarray(self.omega, self.dtype)
         w = jnp.asarray(self.lattice.w_np(np.float32), self.dtype)[:, None, None]
@@ -356,9 +218,6 @@ class ReactionDiffusion(Diffusion):
         G = jnp.asarray(self.G, self.dtype)
         return G * rho * (1.0 - rho)
 
-    def _lb_G(self):
-        return self.G
-
 
 class ReactionAdvectionDiffusion(AdvectionDiffusion):
     """Fisher wave advected by a uniform flow (``diffusion.py:521-553``);
@@ -378,9 +237,6 @@ class ReactionAdvectionDiffusion(AdvectionDiffusion):
     def _source(self, rho):
         G = jnp.asarray(self.G, self.dtype)
         return G * rho * (1.0 - rho)
-
-    def _lb_G(self):
-        return self.G
 
 
 class ReactionAdvectionDiffusionStochastic(ReactionAdvectionDiffusion):
@@ -402,62 +258,6 @@ class ReactionAdvectionDiffusionStochastic(ReactionAdvectionDiffusion):
         return (f, jax.random.PRNGKey(self._rng_seed))
 
     def make_step(self):
-        from ..ops.fused import supports_temporal
-
-        if self._resident_capable():
-            self.backend = "resident"
-            return self._make_xla_stochastic_step()
-        # deeper blocking keeps winning for this VPU-heavy kernel
-        # (measured at 2048^2: K=4 6960 / K=6 8437 / K=8 9342 MLUPS)
-        K = 8 if self.ny >= 24 * 8 else 4
-        if (jax.default_backend() == "tpu"
-                and supports_temporal(self.ny, self.nx, K)
-                and self.ny >= 24 * K):
-            self.backend = "temporal"
-            return self._make_noisy_temporal_step(K)
-        self.backend = "xla"
-        return self._make_xla_stochastic_step()
-
-    def _install_resident_run(self, interpret=None):
-        """Resident kernel for the stochastic Fisher wave: the whole
-        ``run(n)`` is one launch; normals come from the on-core TPU PRNG
-        reseeded per step from a launch seed (a different — identically
-        distributed — realization than ``jax.random``, same divergence
-        note as the temporal path)."""
-        from ..ops.fused import make_resident_pipe_step
-
-        kw = {} if interpret is None else {"interpret": interpret}
-        run_k = make_resident_pipe_step(
-            ny=self.ny, nx=self.nx, omega=float(self.omega),
-            physics="noisy_fisher",
-            u_lb=float(np.asarray(self.u).ravel()[0]),
-            v_lb=float(np.asarray(self.v).ravel()[0]),
-            lb_G=float(self.G), lb_Dg=float(self.Dg), dtype=self.dtype,
-            **kw)
-
-        def run(state, n):
-            f, key = state
-            key, ks = jax.random.split(key)
-            seed = jax.lax.bitcast_convert_type(
-                jax.random.bits(ks, (), jnp.uint32), jnp.int32)
-            return (run_k(f, n, seed), key)
-
-        self._run_compiled = jax.jit(run, donate_argnums=0)
-        self.backend = "resident"
-        self.steps_per_call = 1
-
-    def _make_noisy_temporal_step(self, K, interpret=None):
-        stepK = make_noisy_temporal_step(
-            self.ny, self.nx, self.omega,
-            float(np.asarray(self.u).ravel()[0]),
-            float(np.asarray(self.v).ravel()[0]),
-            self.G, self.Dg, K, self._make_xla_stochastic_step(),
-            self.dtype, interpret=interpret)
-        self.steps_per_call = K
-        self._single_step = self._make_xla_stochastic_step()
-        return stepK
-
-    def _make_xla_stochastic_step(self):
         u, v = self.u, self.v
         omega = jnp.asarray(self.omega, self.dtype)
         w = jnp.asarray(self.lattice.w_np(np.float32), self.dtype)[:, None, None]

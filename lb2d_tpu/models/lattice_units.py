@@ -8,8 +8,8 @@ the imposed pressure drop (``outlet_rho = deltaP/cs^2 + inlet_rho``,
 computing viscosity/Re/Ma from omega (``OLD/python.py:56-64``).
 
 :class:`LatticePipeFlow` reproduces that API on the modern step machinery
-(same fused kernels and backends as :class:`~lb2d_tpu.models.pipe_flow.
-PipeFlow`). The velocity-inlet and obstacle variants of the OLD module are
+(the same XLA step as :class:`~lb2d_tpu.models.pipe_flow.PipeFlow`).
+The velocity-inlet and obstacle variants of the OLD module are
 covered by :class:`~lb2d_tpu.models.pipe_flow.PipeFlowVelocityInlet` and
 the ``obstacle_mask`` argument. Note the OLD module's update order
 (``move_bcs`` before the in-place ``move``, ``OLD/python.py``) differs from
@@ -19,11 +19,11 @@ verified order (stream -> BC) everywhere.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..core.lattice import D2Q9
+from .base import LBModel, resolve_backend
 from .pipe_flow import PipeFlow
 
 __all__ = ["LatticePipeFlow", "LatticePipeFlowPeriodicBC",
@@ -55,41 +55,10 @@ class LatticePipeFlow(PipeFlow):
         if obstacle_mask is not None:
             obstacle_mask = jnp.asarray(np.asarray(obstacle_mask, dtype=bool))
         self.obstacle_mask = obstacle_mask
-        self._pad_dims = None
-
-        import jax
-
-        from ..ops.fused import (
-            supports_fused,
-            supports_pipelined,
-            supports_temporal,
-        )
-
-        from ..ops.fused import supports_resident
-
-        if backend == "auto":
-            on_tpu = jax.default_backend() == "tpu"
-            if not on_tpu:
-                backend = "xla"
-            elif supports_resident(self.ny, self.nx,
-                                   obstacle_mask is not None):
-                backend = "resident"
-            elif obstacle_mask is None and supports_temporal(self.ny, self.nx):
-                backend = "temporal"
-            elif supports_pipelined(self.ny, self.nx):
-                backend = "pipelined"
-            elif supports_fused(self.ny, self.nx):
-                backend = "fused"
-            else:
-                backend = "xla"
-        self.backend = backend
+        self.backend = resolve_backend(backend, extra=("native",))
 
         self.state = self._init_state(np.random.RandomState(seed))
-        from .base import LBModel
-
         LBModel.__init__(self)
-        if self.backend == "resident":
-            self._install_resident_run()
         self.update_dimensionless_nums()
 
     def update_dimensionless_nums(self):
@@ -131,9 +100,6 @@ class PipeFlowVelocityInlet(LatticePipeFlow):
     physical-units version): uniform initial state rho = 1, u = u_w, v = 0
     (``OLD/opencl.py:299-317``, no perturbation).
 
-    The fused kernels bake the *pressure* BCs, so this model always runs
-    the XLA step.
-
     Stability fix (DIVERGENCES.md #20): the reference's
     ``update_hydro_PeriodicBC_VelocityInlet`` (``D2Q9.cl:323-374``) overrides
     rho/u on the boundary columns with a pre-move formula applied post-move;
@@ -150,12 +116,10 @@ class PipeFlowVelocityInlet(LatticePipeFlow):
         self.u_e = float(u_w)
         assert outlet in ("zero_gradient", "velocity")
         self.outlet = outlet
-        kwargs.setdefault("backend", "xla")
-        assert kwargs["backend"] == "xla", "velocity-inlet BC is XLA-only"
+        if kwargs.get("backend", "xla") not in ("auto", "xla"):
+            # the C++ library bakes the pressure BCs
+            raise ValueError("velocity-inlet BC runs on the 'xla' backend only")
         super().__init__(omega=omega, lx=lx, ly=ly, deltaP=0.0, **kwargs)
-
-    def _fused_capable(self) -> bool:
-        return False  # velocity-inlet BC not in the fused kernel
 
     def _bc_fn(self):
         from ..ops.boundary import (
@@ -176,46 +140,6 @@ class PipeFlowVelocityInlet(LatticePipeFlow):
         return self._feq_fn()(rho0, u0, v0)
 
     def make_step(self):
-        from ..ops.fused import supports_temporal
-
-        if (self.outlet == "zero_gradient" and self.obstacle_mask is None
-                and jax.default_backend() == "tpu"):
-            for K in (8, 6, 4):
-                if (supports_temporal(self.ny, self.nx, K)
-                        and self.ny >= 24 * K):
-                    self.backend = "temporal"
-                    return self._make_temporal_step(K)
-        return self._make_xla_step()
-
-    def _make_temporal_step(self, K, interpret=None):
-        """K-step temporal kernel (physics="velocity_inlet") + the
-        y-periodic seam band patch (same construction as the diffusion
-        family: the wrap seam rows within K of y=0 are recomputed with K
-        plain XLA steps on a 6K-row wrapped band)."""
-        from ..ops.fused import make_temporal_pipe_step
-
-        kw = {} if interpret is None else {"interpret": interpret}
-        kernel = make_temporal_pipe_step(
-            ny=self.ny, nx=self.nx, omega=float(self.omega),
-            physics="velocity_inlet", u_lb=float(self.u_w),
-            k_steps=K, dtype=self.dtype, **kw)
-        xla_step = self._make_xla_step()
-        B = 3 * K
-        band_idx = jnp.asarray(np.arange(-B, B) % self.ny)
-        patch_rows = jnp.asarray(np.arange(-K, K) % self.ny)
-
-        def stepK(f):
-            out = kernel(f)
-            band = f[:, band_idx, :]
-            for _ in range(K):
-                band = xla_step(band)
-            return out.at[:, patch_rows, :].set(band[:, B - K:B + K, :])
-
-        self.steps_per_call = K
-        self._single_step = xla_step
-        return stepK
-
-    def _make_xla_step(self):
         from ..ops.collide import bgk
         from ..ops.boundary import bounce_back_obstacle
         from ..ops.moments import hydro_compressible

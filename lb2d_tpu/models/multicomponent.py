@@ -39,13 +39,10 @@ Physics formulas (all cited into the kernels):
 
 dtype: the reference hard-requires fp64 (``single_component.cl:1-7``).
 Default here is fp64 when ``jax_enable_x64`` is on, else fp32 (documented
-choice per SURVEY.md §7.6 — v5e has no native fp64; enable x64 for
-bit-faithful comparisons on CPU).
+choice per SURVEY.md §7.6; enable x64 for bit-faithful comparisons).
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import time
 
@@ -54,6 +51,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core.lattice import D2Q9, D2Q25, Lattice
+from .base import resolve_backend
 
 __all__ = ["Fluid", "SimulationRunner", "SECOND_BELT_STENCIL"]
 
@@ -194,8 +192,7 @@ class SimulationRunner:
 
     def __init__(self, nx=100, ny=100, L_lb=100, T_lb=1.0, num_populations=1,
                  porous=True, lattice: Lattice = D2Q9, dtype=None,
-                 check_max_ulb=False, mach_tolerance=0.1, backend="auto",
-                 stale_force=None):
+                 check_max_ulb=False, mach_tolerance=0.1, backend="auto"):
         self.nx, self.ny = int(nx), int(ny)
         self.L_lb, self.T_lb = L_lb, T_lb
         self.delta_x = 1.0 / L_lb
@@ -210,17 +207,6 @@ class SimulationRunner:
                              else ZERO_DENSITY_MULTI)
         self.check_max_ulb = check_max_ulb
         self.mach_tolerance = mach_tolerance
-        # stale_force=K (>= 2) lets dynamic force hooks (the screened-
-        # Poisson repulsion) be recomputed once per K-step kernel sweep and
-        # held constant within it, instead of pinning the temporal depth to
-        # 1. Opt-in approximation: the reference recomputes per step
-        # (multi.py:488-511); the force field varies on the diffusive
-        # timescale, so the sweep-stale error is ~1e-4 relative over
-        # hundreds of steps (quantified in benchmarks/RESULTS.md). Default
-        # None = exact per-step coupling.
-        self.stale_force = None if stale_force in (None, 0, 1) \
-            else int(stale_force)
-
         C, q = self.num_populations, lattice.q
         self.rho = jnp.zeros((C, self.ny, self.nx), dtype)
         self.u_bary = jnp.zeros((self.ny, self.nx), dtype)
@@ -230,17 +216,13 @@ class SimulationRunner:
         self.fluid_list: list[Fluid] = []
         self.additional_forces = []      # fns (rho, u, v, Gx, Gy) -> (Gx, Gy)
         self.additional_collisions = []  # fns (f, rho) -> f
-        # structured descriptors mirroring the hooks, consumed by the fused
-        # Pallas path (ops/fused_mc.py); "unsupported" forces an XLA fallback
-        self._force_desc = []
-        self._coll_desc = []
+        # screened-Poisson solvers of the registered force hooks (switched
+        # to the partitionable DFT by shard_over)
+        self._screened = []
         self._run_jit = None
         self._mesh = None
-        assert backend in ("auto", "kernel", "xla")
-        self.backend = backend
+        self.backend = resolve_backend(backend)
         self.backend_used = None
-        self.steps_per_call = 1
-        self._run_rem = None
         self.steps_taken = 0
 
     # ---- setup ---------------------------------------------------------------
@@ -268,7 +250,6 @@ class SimulationRunner:
             return f
 
         self.additional_collisions.append(collision)
-        self._coll_desc.append(("eating", eater_index, eatee_index, rate))
 
     def add_growth(self, eater_index, min_rho_cutoff, max_rho_cutoff,
                    eat_rate):
@@ -283,8 +264,6 @@ class SimulationRunner:
             return f.at[:, eater_index].add(w * grow)
 
         self.additional_collisions.append(collision)
-        self._coll_desc.append(("growth", eater_index, min_rho_cutoff,
-                                max_rho_cutoff, eat_rate))
 
     def add_constant_body_force(self, fluid_index, force_x, force_y):
         """Constant force per density (``single_component.cl:547-570``)."""
@@ -294,8 +273,6 @@ class SimulationRunner:
                     Gy.at[fluid_index].add(force_y))
 
         self.additional_forces.append(force)
-        self._force_desc.append(("const_force", fluid_index, force_x,
-                                 force_y))
 
     def add_constant_g_force(self, fluid_index, g_x, g_y):
         """Constant gravity: force density ``g rho``
@@ -306,7 +283,6 @@ class SimulationRunner:
                     Gy.at[fluid_index].add(g_y * rho[fluid_index]))
 
         self.additional_forces.append(force)
-        self._force_desc.append(("const_g", fluid_index, g_x, g_y))
 
     def _radial(self, center_x, center_y, prefactor, radial_scaling,
                 times_rho, fluid_index):
@@ -324,11 +300,6 @@ class SimulationRunner:
                     Gy.at[fluid_index].add(fy * scale))
 
         self.additional_forces.append(force)
-        if times_rho:
-            self._force_desc.append(("unsupported",))
-        else:
-            self._force_desc.append(("static_ext", fluid_index,
-                                     np.asarray(fx), np.asarray(fy)))
 
     def add_radial_body_force(self, fluid_index, center_x, center_y,
                               prefactor, radial_scaling):
@@ -377,10 +348,6 @@ class SimulationRunner:
             return Gx, Gy
 
         self.additional_forces.append(force)
-        belt = 2 if stencil is SECOND_BELT_STENCIL else 1
-        self._force_desc.append(("interaction", fluid_1, fluid_2, G_int,
-                                 spec, tuple(np.asarray(params, np.float64)),
-                                 belt, bc))
 
     def add_interaction_force(self, fluid_1_index, fluid_2_index, G_int,
                               bc="periodic", potential="linear",
@@ -404,19 +371,16 @@ class SimulationRunner:
                           potential_parameters, SECOND_BELT_STENCIL)
 
     def add_screened_poisson_force(self, source_index, force_index,
-                                   interaction_length, amplitude,
-                                   precision="highest"):
+                                   interaction_length, amplitude):
         """Per-step spectral repulsion (``multi.py:488-511, 768-769``):
         ``G[force_index] += amplitude * grad(screen(rho[source_index]))``
-        with dx = 1. ``precision="bf16x3"`` runs the Pallas solve's
-        matmuls as 3-pass split-bf16 instead of ``Precision.HIGHEST``
-        (~27% faster solve at 8192^2; relative gradient error ~3e-4
-        instead of ~5e-5 — bounded by
-        ``test_screened_force_bf16x3_close_to_highest``)."""
+        with dx = 1, solved with ``jnp.fft`` (the matmul DFT once
+        :meth:`shard_over` spreads the state over several devices)."""
         from .waves import _ScreenedVelocity
 
         vel = _ScreenedVelocity(self.ny, self.nx, interaction_length,
-                                1.0, 1.0, 1.0, mm=precision)
+                                1.0, 1.0, 1.0)
+        self._screened.append(vel)
         # _ScreenedVelocity returns -vc*ulb*grad with vc=ulb=1 -> -grad;
         # the reference adds +amplitude*grad, so negate.
         def force(rho, u, v, Gx, Gy):
@@ -426,8 +390,6 @@ class SimulationRunner:
             return Gx.at[force_index].add(gx), Gy.at[force_index].add(gy)
 
         self.additional_forces.append(force)
-        self._force_desc.append(("dyn_ext", source_index, force_index, vel,
-                                 amplitude))
 
     # ---- numerics ------------------------------------------------------------
     def _w_col(self):
@@ -532,313 +494,12 @@ class SimulationRunner:
             f = coll(f, rho)
         return f
 
-    # ---- fused Pallas path (ops/fused_mc.py) ---------------------------------
-    def _kernel_plan(self):
-        """Classify the registered hooks for the fused kernel. Returns
-        ``(cfg, static_ext, dyn_hooks)`` or ``None`` when this configuration
-        must run on the XLA path (non-D2Q9, fp64, zero-gradient BCs, or an
-        unsupported hook)."""
-        from ..ops.fused_mc import FluidParams, MCKernelConfig
-
-        if self.lattice.q not in (9, 25) or self.dtype != jnp.float32:
-            return None
-        if any(fl.bc != "periodic" for fl in self.fluid_list):
-            return None
-        C = self.num_populations
-        interactions, const_forces, const_g, dyn = [], [], [], []
-        static_ext = None
-        for d in self._force_desc:
-            kind = d[0]
-            if kind == "unsupported":
-                return None
-            if kind == "const_force":
-                const_forces.append((int(d[1]), float(d[2]), float(d[3])))
-            elif kind == "const_g":
-                const_g.append((int(d[1]), float(d[2]), float(d[3])))
-            elif kind == "static_ext":
-                i, fx, fy = d[1], d[2], d[3]
-                if static_ext is None:
-                    static_ext = np.zeros((2 * C, self.ny, self.nx),
-                                          np.float32)
-                static_ext[i] += fx
-                static_ext[C + i] += fy
-            elif kind == "interaction":
-                i1, i2, G_int, spec, params, belt, bc = d[1:]
-                if bc != "periodic":
-                    return None
-                interactions.append((int(i1), int(i2), float(G_int),
-                                     int(spec), tuple(params), int(belt)))
-            elif kind == "dyn_ext":
-                dyn.append(d[1:])
-            else:
-                return None
-        has_ext = static_ext is not None or bool(dyn)
-        cfg = MCKernelConfig(
-            fluids=tuple(FluidParams(omega=fl.omega, epsilon=fl.epsilon,
-                                     nu_fluid=fl.nu_fluid, K=fl.K, Fe=fl.Fe)
-                         for fl in self.fluid_list),
-            porous=self.porous,
-            zero_density=self.zero_density,
-            interactions=tuple(interactions),
-            const_forces=tuple(const_forces),
-            const_g=tuple(const_g),
-            collisions=tuple(self._coll_desc),
-            has_ext=has_ext,
-        )
-        return cfg, static_ext, dyn
-
-    def _make_kernel_step(self, k_steps=None):
-        """Build the fused step ``f[q, C, ny, nx] -> f`` advancing
-        ``steps_per_call`` LB steps (unsharded, or ``shard_map``-wrapped
-        over a y-decomposed mesh). Returns ``None`` when the kernel path is
-        unavailable. Dynamic force hooks (screened-Poisson) pin the
-        temporal depth to 1 — the field is only valid for the step it was
-        computed from (``stale_force`` relaxes this per sweep) — and, when
-        the shard sees the whole y extent, switch the kernel to
-        density-emit mode: the returned step carries ``(f, rho)`` (set
-        ``step.carried``; build the initial carry with
-        ``step.init_carry(f)``), the solve consumes the kernel-emitted
-        post-stream density, and ``f``'s only consumer is the in-place
-        kernel (no XLA density pass, no protective copy)."""
-        from ..ops.fused_mc import make_mc_halo_step, supports_mc_halo
-
-        plan = self._kernel_plan()
-        if plan is None:
-            return None
-        cfg, static_ext, dyn = plan
-        q, C = self.lattice.q, self.num_populations
-        ny, nx = self.ny, self.nx
-        P_ = q * C
-        mesh = self._mesh
-        if mesh is not None and mesh.size == 1:
-            mesh = None   # a 1x1 mesh partitions nothing: skip shard_map
-        my = mx = 1
-        if mesh is not None:
-            my = dict(mesh.shape)["y"]
-            mx = dict(mesh.shape).get("x", 1)
-            if ny % my or nx % mx:
-                return None
-        H = ny // my
-        W = nx // mx
-        # 2-D meshes: the shard's body is W lanes, extended with one
-        # 128-lane strip ppermuted from each x-neighbor (cut from the
-        # y-extended arrays so diagonal corners arrive in two hops — the
-        # flow kernel's scheme, parallel/sharded.py)
-        BX = 128 if mx > 1 else 0
-        if BX and (W % 128 or W < 128):
-            return None
-        WE = W + 2 * BX
-        reach = int(max(max(abs(c) for c in self.lattice.cy), 1))
-        emit = ()
-        if (dyn and my == 1 and mx == 1 and self.lattice.q == 9
-                and reach == 1):
-            emit = tuple(sorted({d[0] for d in dyn}))
-        # sparse ext layout when only dynamic hooks force the fluids: one
-        # (Gx, Gy) plane pair per hook instead of the dense 2C planes —
-        # no all-zero planes through HBM and the kernel's ext rings
-        ext_map = None
-        if dyn and static_ext is None:
-            ext_map = tuple(p for (_, tgt, _, _) in dyn
-                            for p in ((tgt, 0), (tgt, 1)))
-        n_ext = (len(ext_map) if ext_map is not None
-                 else (2 * C if cfg.has_ext else 0))
-        if dyn:
-            # Dynamic ext forces default to K=1 (the field is only valid
-            # for the step it was computed from). stale_force=K opts into
-            # holding it for a K-step sweep — but only when the shard sees
-            # the whole grid (1x1 mesh): the kernel wraps halo ext rows
-            # shard-locally, which is only the true periodic wrap there.
-            sf = 1 if (my > 1 or mx > 1) else (self.stale_force or 1)
-            if k_steps is not None:
-                sf = min(sf, int(k_steps))
-            from ..ops.fused_mc import pick_mc_tiling
-            while sf > 1 and pick_mc_tiling(
-                    H, WE, C, cfg.belt, cfg.has_ext, sf,
-                    q=q, reach=reach, emit=len(emit), n_ext=n_ext) is None:
-                sf -= 1
-            k_steps = sf
-        # Halo ext rows: the kernel's ext ring wraps them shard-locally,
-        # which is the true field only when the shard covers the whole
-        # grid — at K>1 the halo chunks' stage-0 physics would otherwise
-        # run on the wrong force rows and feed later stages' stream halos
-        # (found as a 0.11 divergence on a 4x1 mesh at K=8; regression:
-        # test_sharded_static_ext_forces). STATIC fields on a sharded
-        # mesh therefore ppermute the true neighbor ext halo chunks
-        # (ext_halos=True, K stays free); dynamic hooks are already
-        # pinned to K=1 there, where halo ext values are never consumed.
-        ext_halos = bool(cfg.has_ext) and (my > 1 or mx > 1) and not dyn
-        if dyn and (my > 1 or mx > 1):
-            k_steps = 1
-        if not supports_mc_halo(H, WE, C, cfg.belt, cfg.has_ext,
-                                q=q, reach=reach, emit=len(emit),
-                                n_ext=n_ext):
-            return None
-        if BX and k_steps is not None and k_steps * (1 + cfg.belt) > BX:
-            return None
-        interpret = jax.default_backend() != "tpu"
-        kernel = make_mc_halo_step(H=H, nx=WE, cfg=cfg, dtype=self.dtype,
-                                   interpret=interpret, k_steps=k_steps,
-                                   lattice=self.lattice, emit_src=emit,
-                                   x_ext=BX, body_w=W if BX else None,
-                                   ext_map=ext_map, ext_halos=ext_halos)
-        CH = kernel.chunk
-        self.steps_per_call = kernel.k_steps
-        dt = self.dtype
-        cx_np, cy_np = self.lattice.cx, self.lattice.cy
-        static_ext_j = (jnp.asarray(static_ext, dt)
-                        if static_ext is not None else None)
-
-        def roll_density(f, src):
-            """Post-stream density of fluid ``src`` via periodic rolls."""
-            r = None
-            for j in range(q):
-                p = f[j, src]
-                if cy_np[j]:
-                    p = jnp.roll(p, cy_np[j], axis=0)
-                if cx_np[j]:
-                    p = jnp.roll(p, cx_np[j], axis=1)
-                r = p if r is None else r + p
-            return r
-
-        def assemble_ext(grad_rho):
-            """Assemble the external force planes: static fields plus the
-            screened-Poisson repulsion (``multi.py:488-511``), evaluated
-            on the post-stream density ``grad_rho(src)`` so the kernel
-            sees exactly the XLA path's force ordering. With the sparse
-            ``ext_map`` layout only the forced planes exist (no zeros +
-            scatter-add round trip — at 8192^2 each full-ext pass is ~1 GB
-            of HBM traffic, and the dense layout shipped 2 all-zero
-            planes on top)."""
-            if ext_map is not None:
-                if len(dyn) == 1 and hasattr(dyn[0][2], "ext_planes"):
-                    # single screened-Poisson hook: the -amp scale and
-                    # the plane stack are fused into the solve's final
-                    # kernel write (waves._ScreenedVelocity.ext_planes)
-                    # — no separate XLA multiply+stack pass
-                    src, tgt, vel, amp = dyn[0]
-                    return vel.ext_planes(
-                        grad_rho(src).astype(jnp.float32),
-                        -amp).astype(dt)
-                planes = []
-                for (src, tgt, vel, amp) in dyn:
-                    gx, gy = vel(grad_rho(src).astype(jnp.float32))
-                    planes.append((-amp * gx).astype(dt))
-                    planes.append((-amp * gy).astype(dt))
-                return jnp.stack(planes)
-            planes = ([static_ext_j[i] for i in range(2 * C)]
-                      if static_ext_j is not None else [None] * (2 * C))
-            for (src, tgt, vel, amp) in dyn:
-                gx, gy = vel(grad_rho(src).astype(jnp.float32))
-                gx = (-amp * gx).astype(dt)
-                gy = (-amp * gy).astype(dt)
-                planes[tgt] = gx if planes[tgt] is None else planes[tgt] + gx
-                planes[C + tgt] = (gy if planes[C + tgt] is None
-                                   else planes[C + tgt] + gy)
-            zero = jnp.zeros((ny, nx), dt)
-            return jnp.stack([p if p is not None else zero for p in planes])
-
-        def build_ext(f):
-            return assemble_ext(lambda src: roll_density(f, src))
-
-        if emit:
-            def kstep(carry):
-                f, rho_s = carry
-                flat = f.reshape(P_, ny, nx)
-                top = flat[:, ny - CH:, :]   # periodic wrap rows
-                bot = flat[:, :CH, :]
-                ext = assemble_ext(lambda src: rho_s[emit.index(src)])
-                out, rho_next = kernel(flat, top, bot, ext)
-                return out.reshape(q, C, ny, nx), rho_next
-
-            def init_carry(f):
-                return f, jnp.stack([roll_density(f, s) for s in emit])
-
-            kstep.carried = True
-            kstep.init_carry = init_carry
-            return kstep
-
-        if mesh is None:
-            def kstep(f):
-                flat = f.reshape(P_, ny, nx)
-                top = flat[:, ny - CH:, :]   # periodic wrap rows
-                bot = flat[:, :CH, :]
-                if cfg.has_ext:
-                    out = kernel(flat, top, bot, build_ext(f))
-                else:
-                    out = kernel(flat, top, bot)
-                return out.reshape(q, C, ny, nx)
-            return kstep
-
-        # sharded: ppermute halo chunks, kernel per shard (cf.
-        # parallel/sharded.py::make_sharded_temporal_step)
-        from jax.sharding import PartitionSpec as Pspec
-        from ..parallel.halo import _ring_shift
-
-        def x_extend(arr):
-            """[planes, rows, W] -> [planes, rows, W + 256] with 128-lane
-            strips ppermuted from the x-neighbors."""
-            left = arr[:, :, W - 128:]   # my last lanes -> next's left
-            right = arr[:, :, :128]      # my first lanes -> prev's right
-            left = _ring_shift(left, "x", +1)
-            right = _ring_shift(right, "x", -1)
-            return jnp.concatenate([left, arr, right], axis=2)
-
-        def local(flat_loc, *ext_loc):
-            top = flat_loc[:, H - CH:, :]
-            bot = flat_loc[:, :CH, :]
-            etop = ebot = None
-            if ext_halos:
-                etop = ext_loc[0][:, H - CH:, :]
-                ebot = ext_loc[0][:, :CH, :]
-            if my > 1:
-                top = _ring_shift(top, "y", +1)
-                bot = _ring_shift(bot, "y", -1)
-                if ext_halos:
-                    etop = _ring_shift(etop, "y", +1)
-                    ebot = _ring_shift(ebot, "y", -1)
-            if BX:
-                # strips cut AFTER the y exchange so the halo chunks'
-                # corner lanes carry the diagonal neighbors' data
-                flat_loc = x_extend(flat_loc)
-                top = x_extend(top)
-                bot = x_extend(bot)
-                ext_loc = tuple(x_extend(e) for e in ext_loc)
-                if ext_halos:
-                    etop = x_extend(etop)
-                    ebot = x_extend(ebot)
-            if ext_halos:
-                return kernel(flat_loc, top, bot, ext_loc[0], etop, ebot)
-            if cfg.has_ext:
-                return kernel(flat_loc, top, bot, ext_loc[0])
-            return kernel(flat_loc, top, bot)
-
-        spec = Pspec(None, "y", "x") if BX else Pspec(None, "y", None)
-        if cfg.has_ext:
-            sm = jax.shard_map(local, mesh=mesh, in_specs=(spec, spec),
-                               out_specs=spec, check_vma=False)
-        else:
-            sm = jax.shard_map(local, mesh=mesh, in_specs=(spec,),
-                               out_specs=spec, check_vma=False)
-
-        def kstep(f):
-            flat = f.reshape(P_, ny, nx)
-            if cfg.has_ext:
-                out = sm(flat, build_ext(f))
-            else:
-                out = sm(flat)
-            return out.reshape(q, C, ny, nx)
-
-        return kstep
-
     # ---- sharding --------------------------------------------------------------
     def shard_over(self, mesh):
         """Domain-decompose the state over a ``("y", "x")`` device mesh.
 
-        On a y-decomposed mesh with a kernel-eligible configuration the
-        fused Pallas kernel runs per shard inside ``shard_map`` with
-        ``ppermute`` halo-chunk exchange; otherwise the step is pure jnp
-        (rolls, elementwise, reductions) and GSPMD partitions it
-        automatically once the state carries a ``NamedSharding`` — rolls
+        The step is pure jnp (rolls, elementwise, reductions), so GSPMD
+        partitions it once the state carries a ``NamedSharding``: rolls
         become halo ``collective-permute``s and the barycentric reductions
         stay shard-local. This is the scaling path for the 8192^2 porous
         workload (BASELINE.json config 5).
@@ -852,15 +513,11 @@ class SimulationRunner:
         s3 = NamedSharding(mesh, P(None, "y", *xs))
         s2 = NamedSharding(mesh, P("y", *xs))
         if mesh.size > 1:
-            for desc in self._force_desc:
-                # dyn_ext entries carry a _ScreenedVelocity; its Pallas DFT
-                # solve is a custom call GSPMD cannot partition — force the
-                # partitionable matmul-DFT path under a real mesh (also
-                # over the CPU fft path: XLA's cpu fft thunk RET_CHECKs on
-                # the non-major layouts a 2-D-sharded operand produces)
-                if desc[0] == "dyn_ext" and hasattr(desc[3], "allow_pallas"):
-                    desc[3].allow_pallas = False
-                    desc[3].method = "matmul"
+            # cuFFT / the CPU FFT thunk do not partition a sharded operand
+            # (the CPU one RET_CHECKs on 2-D-sharded layouts): solve with the
+            # GSPMD-partitionable matmul DFT instead
+            for vel in self._screened:
+                vel.method = "matmul"
         self.f = jax.device_put(self.f, s4)
         self.rho = jax.device_put(self.rho, s3)
         self.u_bary = jax.device_put(self.u_bary, s2)
@@ -871,73 +528,27 @@ class SimulationRunner:
         return self
 
     # ---- execution -----------------------------------------------------------
-    def run(self, num_iterations, debug=False, timed=False, k_steps=None):
-        if (self._run_jit is not None and k_steps is not None
-                and k_steps != getattr(self, "_built_k_steps", None)):
-            # the compiled step is keyed on its temporal depth: a different
-            # k_steps request must rebuild, not silently reuse the old one
-            self._run_jit = None
-            self._warm = False
+    def run(self, num_iterations, debug=False, timed=False):
         if self._run_jit is None:
-            self._built_k_steps = k_steps
-            step = None
-            self.steps_per_call = 1
-            if self.backend in ("auto", "kernel"):
-                step = self._make_kernel_step(k_steps=k_steps)
-                if step is None and self.backend == "kernel":
-                    raise ValueError(
-                        "kernel backend unavailable: needs D2Q9, fp32, "
-                        "periodic BCs, aligned grid, supported hooks")
-            self.backend_used = "xla" if step is None else "kernel"
-            if step is None:
-                step = self._step
-
-            def _loop(st):
-                # density-emit steps carry (f, rho); the emitted density
-                # seeds from one roll pass per run() call, amortized
-                if getattr(st, "carried", False):
-                    return lambda f, n: jax.lax.fori_loop(
-                        0, n, lambda i, s: st(s), st.init_carry(f))[0]
-                return lambda f, n: jax.lax.fori_loop(
-                    0, n, lambda i, s: st(s), f)
-
-            self._run_jit = jax.jit(_loop(step), donate_argnums=0)
-            if self.steps_per_call > 1:
-                # remainder steps run a K=1 kernel (NOT the XLA step: its
-                # unfused intermediates OOM at 8192^2); compiled only if a
-                # non-multiple-of-K iteration count ever occurs
-                spc = self.steps_per_call
-                rem_step = self._make_kernel_step(k_steps=1)
-                self.steps_per_call = spc
-                if rem_step is None:
-                    rem_step = self._step
-                self._run_rem = jax.jit(_loop(rem_step), donate_argnums=0)
+            step = self._step
+            self.backend_used = "xla"
+            self._run_jit = jax.jit(
+                lambda f, n: jax.lax.fori_loop(0, n, lambda i, s: step(s), f),
+                donate_argnums=0)
         if timed and not getattr(self, "_warm", False):
-            # compile + sync outside the timed region (cf. LBModel.run),
-            # including the remainder path when this call will use it —
-            # its first-use compile would otherwise land inside the
-            # measurement
-            self.f = self._run_jit(self.f, jnp.int32(0))
-            if (self._run_rem is not None
-                    and int(num_iterations) % self.steps_per_call):
-                self.f = self._run_rem(self.f, jnp.int32(0))
-            float(jnp.sum(jnp.ravel(self.f)[:8]))
+            # compile + sync outside the timed region (cf. LBModel.run)
+            self.f = jax.block_until_ready(
+                self._run_jit(self.f, np.int32(0)))
             self._warm = True
         t0 = time.perf_counter() if timed else None
         if debug:
-            one = (self._run_rem if self.steps_per_call > 1
-                   else self._run_jit)
             for _ in range(num_iterations):
-                self.f = one(self.f, jnp.int32(1))
+                self.f = self._run_jit(self.f, np.int32(1))
                 self.check_fields()
         else:
-            n_calls, rem = divmod(int(num_iterations), self.steps_per_call)
-            if n_calls:
-                self.f = self._run_jit(self.f, jnp.int32(n_calls))
-            if rem:
-                self.f = self._run_rem(self.f, jnp.int32(rem))
+            self.f = self._run_jit(self.f, np.int32(num_iterations))
         if timed:
-            float(jnp.sum(jnp.ravel(self.f)[:8]))  # readback sync
+            jax.block_until_ready(self.f)
             dt = time.perf_counter() - t0
             self.last_mlups = self.nx * self.ny * num_iterations / dt / 1e6
         self.steps_taken += num_iterations

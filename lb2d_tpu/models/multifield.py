@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core.lattice import D2Q9
+from ..ops.boundary import noflux_walls_masked
 from .base import LBModel
 
 __all__ = ["FisherExpansion", "Expansion", "noflux_bcs_multifield"]
@@ -55,17 +56,15 @@ def noflux_bcs_multifield(f):
     ``D2Q9_multifield_fisher.cl:184-289`` (full bounce-back of the three
     outgoing populations on each wall; three populations per corner).
 
-    Implemented as masked selects via the shared tile helper — NOT
-    ``.at[].set`` edge scatters, which GSPMD miscompiles on y-sharded
-    arrays (every shard applies the global row -1 update to its own last
-    local row)."""
-    from ..ops.fused import _mf_noflux_walls
-
+    Implemented as masked selects (:func:`~lb2d_tpu.ops.boundary.
+    noflux_walls_masked`) — NOT ``.at[].set`` edge scatters, which GSPMD
+    miscompiles on y-sharded arrays (every shard applies the global row -1
+    update to its own last local row)."""
     q, F, ny, nx = f.shape
     rowid = jax.lax.broadcasted_iota(jnp.int32, (ny, nx), 0)
     laneid = jax.lax.broadcasted_iota(jnp.int32, (ny, nx), 1)
     st = [[f[j, p] for p in range(F)] for j in range(q)]
-    st = _mf_noflux_walls(st, rowid, laneid, ny, nx)
+    st = noflux_walls_masked(st, rowid, laneid, ny, nx)
     return jnp.stack([jnp.stack(st[j]) for j in range(q)])
 
 
@@ -217,20 +216,6 @@ class FisherExpansion(_MultifieldBase):
         return f
 
     def make_step(self):
-        from ..ops.fused import (
-            make_temporal_multifield_step,
-            supports_temporal_multifield,
-        )
-
-        # deepest K whose VMEM ring fits (F=2 at 2048^2 tops out at K=6)
-        for K in (8, 6, 4, 3, 2):
-            if (jax.default_backend() == "tpu"
-                    and supports_temporal_multifield(
-                        self.ny, self.nx, self.num_populations, K)):
-                return self._make_temporal_step(K, interpret=False)
-        return self._make_xla_step()
-
-    def _make_xla_step(self):
         lat = self.lattice
         w = jnp.asarray(lat.w_np())[:, None, None, None]
         omega = jnp.asarray(self.omega)[None, :, None, None]
@@ -246,44 +231,6 @@ class FisherExpansion(_MultifieldBase):
             return f * (1.0 - omega) + omega * feq + w * growth[None]
 
         return step
-
-    def _make_temporal_step(self, K, interpret=None):
-        """K-step temporal kernel + wall seam patch.
-
-        The kernel's ring halos are garbage at the domain's y edges; the
-        no-flux corner BCs rewrite *most* but not all of the affected
-        populations (e.g. f6 at the bottom-left corner keeps its streamed
-        value in the reference), so rows within K of either wall must be
-        recomputed. The patch band concatenates rows [0, 3K) and
-        [ny-3K, ny): in that ordering array rows 0 / -1 are the true wall
-        rows, so the plain XLA step (whose BC masks key off array edges)
-        applies exactly; the band's internal seam is 2K rows away from
-        every patched row.
-        """
-        from ..ops.fused import make_temporal_multifield_step
-
-        kw = {} if interpret is None else {"interpret": interpret}
-        kernel = make_temporal_multifield_step(
-            ny=self.ny, nx=self.nx, num_fields=self.num_populations,
-            omegas=self.omega, lb_G=self.lb_G, u_lb=float(self.lb_vx),
-            v_lb=float(self.lb_vy), k_steps=K, dtype=self.dtype, **kw)
-        xla_step = self._make_xla_step()
-        B = 3 * K
-        ny = self.ny
-
-        def stepK(f):
-            out = kernel(f)
-            band = jnp.concatenate(
-                [f[:, :, :B, :], f[:, :, ny - B:, :]], axis=2)
-            for _ in range(K):
-                band = xla_step(band)
-            out = out.at[:, :, :K, :].set(band[:, :, :K, :])
-            out = out.at[:, :, ny - K:, :].set(band[:, :, -K:, :])
-            return out
-
-        self.steps_per_call = K
-        self._single_step = xla_step
-        return stepK
 
     def get_fields(self):
         return self._fields_dict(self.state)
@@ -339,86 +286,6 @@ class Expansion(_MultifieldBase):
         return (f, jax.random.PRNGKey(self._rng_seed))
 
     def make_step(self):
-        from ..ops.fused import supports_temporal_multifield
-
-        # VMEM ring scales with F and K; deeper blocking keeps winning
-        # (1024^2 F=3: K=3 2048 / K=4 2413 / K=6 2620 / K=8 3141 MLUPS vs
-        # XLA 1093) — pick the deepest K the ring fits
-        for K in (8, 6, 4, 3, 2):
-            if (jax.default_backend() == "tpu"
-                    and supports_temporal_multifield(
-                        self.ny, self.nx, self.num_fields, K)
-                    and self.ny >= 24 * K):
-                return self._make_expansion_temporal_step(K)
-        return self._make_xla_stochastic_step()
-
-    def _make_expansion_temporal_step(self, K, interpret=None):
-        """K-step temporal kernel + periodic seam patch.
-
-        Unlike :class:`FisherExpansion` this family has no walls — the
-        domain is fully periodic (``stochastic_nutrients.py`` move_bcs is
-        the diffusion no-op) — so the y-wrap seam band (rows within K of
-        row 0) is recomputed and patched in. Round 5 moved the patch from
-        K serialized XLA steps (launch-overhead bound, ~25% of the step)
-        to a single-launch VMEM-resident Pallas band kernel
-        (:func:`~lb2d_tpu.ops.fused.make_expansion_band_step`). Both the
-        main kernel and the band draw their normals from the on-core TPU
-        PRNG on distinct streams (see DIVERGENCES.md #19 for the
-        stitched-realization caveat).
-        """
-        from ..ops.fused import (make_expansion_band_step,
-                                 make_temporal_multifield_step)
-
-        kw = {} if interpret is None else {"interpret": interpret}
-        omegas = (list(np.asarray(self.omega).ravel())
-                  + [float(self.omega_nutrient)])
-        kernel = make_temporal_multifield_step(
-            ny=self.ny, nx=self.nx, num_fields=self.num_fields,
-            omegas=omegas,
-            lb_G=self.lb_G, lb_Dg=self.lb_Dg, cutoff=self.zero_cutoff,
-            u_lb=float(self.lb_vx), v_lb=float(self.lb_vy),
-            physics="expansion", k_steps=K, dtype=self.dtype, **kw)
-        xla_step = self._make_xla_stochastic_step()
-        noisy = bool(np.any(np.asarray(self.lb_Dg)))
-        # band half-width: >= 2K for exactness (the band kernel's wrap
-        # garbage travels one row per step), >= 3K historical margin,
-        # multiple of 4 so the band is sublane-aligned (2B % 8 == 0)
-        B = -(-max(3 * K, 2 * K) // 4) * 4
-        band_kernel = make_expansion_band_step(
-            band_rows=2 * B, nx=self.nx, num_fields=self.num_fields,
-            omegas=omegas, lb_G=self.lb_G, lb_Dg=self.lb_Dg,
-            cutoff=self.zero_cutoff,
-            u_lb=float(self.lb_vx), v_lb=float(self.lb_vy),
-            k_steps=K, dtype=self.dtype, **kw)
-
-        ny = self.ny
-
-        def stepK(state):
-            f, key = state
-            key, ks, kb = jax.random.split(key, 3)
-            # band rows [-B, B): two static slices, not a gather
-            band_in = jnp.concatenate(
-                [f[:, :, ny - B:, :], f[:, :, :B, :]], axis=2)
-            if noisy:
-                seed = jax.lax.bitcast_convert_type(
-                    jax.random.bits(ks, (1, 1), jnp.uint32), jnp.int32)
-                out = kernel(f, seed)
-                bseed = jax.lax.bitcast_convert_type(
-                    jax.random.bits(kb, (), jnp.uint32), jnp.int32)
-                band = band_kernel(band_in, bseed)
-            else:
-                out = kernel(f)
-                band = band_kernel(band_in)
-            # band emits rows [-K, K): first K -> tail rows, last K -> head
-            out = out.at[:, :, ny - K:, :].set(band[:, :, :K, :])
-            out = out.at[:, :, :K, :].set(band[:, :, K:, :])
-            return (out, key)
-
-        self.steps_per_call = K
-        self._single_step = xla_step
-        return stepK
-
-    def _make_xla_stochastic_step(self):
         lat = self.lattice
         P = self.num_populations
         w = jnp.asarray(lat.w_np())[:, None, None]

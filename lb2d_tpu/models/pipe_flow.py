@@ -13,9 +13,6 @@ executes entirely on-device.
 
 from __future__ import annotations
 
-import math
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -25,23 +22,12 @@ from ..ops.boundary import (
     bounce_back_obstacle,
     zou_he_pressure_bcs,
     zou_he_pressure_bcs_incompressible,
-    zou_he_velocity_bcs,
 )
 from ..ops.collide import bgk
 from ..ops.equilibrium import feq_incompressible, feq_quadratic
-from ..ops.fused import (
-    make_fused_pipe_step,
-    make_pipelined_pipe_step,
-    make_resident_pipe_step,
-    make_temporal_pipe_step,
-    supports_fused,
-    supports_pipelined,
-    supports_resident,
-    supports_temporal,
-)
 from ..ops.moments import hydro_compressible, hydro_incompressible
 from ..ops.stream import stream
-from .base import LBModel
+from .base import LBModel, resolve_backend
 
 __all__ = [
     "PipeFlow",
@@ -103,49 +89,9 @@ class PipeFlow(LBModel):
             else jnp.asarray(np.asarray(obstacle_mask, dtype=bool))
         )
 
-        # Backend selection, fastest first:
-        # - "resident": whole state in VMEM, the full run in ONE kernel
-        #   launch (small grids; dispatch-overhead-free)
-        # - "temporal": K LB steps per HBM sweep (no obstacle support yet)
-        # - "pipelined": single-sweep fused kernel, 1 read + 1 write per step
-        # - "fused": blocked kernel with halo-chunk DMAs
-        # - "xla": pure-XLA oracle path (any grid/backend)
-        self._pad_dims = None
-        has_obst = obstacle_mask is not None
-        if backend == "auto":
-            on_tpu = jax.default_backend() == "tpu"
-            ny_pad = -(-self.ny // 16) * 16
-            nx_pad = -(-self.nx // 128) * 128
-            # resident pads only to (8, 128) tiles, cheaper on tiny grids
-            ny_rpad = -(-self.ny // 8) * 8
-            nx_rpad = -(-self.nx // 128) * 128
-            if not (on_tpu and self._fused_capable()):
-                backend = "xla"
-            elif supports_resident(self.ny, self.nx, has_obst):
-                backend = "resident"
-            elif supports_resident(ny_rpad, nx_rpad, has_obst):
-                # unaligned small grid: edge-pad (same argument as the
-                # padded temporal path below)
-                backend = "resident"
-                self._pad_dims = (ny_rpad, nx_rpad)
-            elif any(supports_temporal(self.ny, self.nx, k)
-                     for k in (8, 6, 4, 2)):
-                backend = "temporal"
-            elif supports_pipelined(self.ny, self.nx):
-                backend = "pipelined"
-            elif supports_fused(self.ny, self.nx):
-                backend = "fused"
-            elif any(supports_temporal(ny_pad, nx_pad, k)
-                     for k in (8, 6, 4, 2)):
-                # unaligned grid: run the temporal kernel on an edge-padded
-                # array. Safe for the flow family only: the x/y walls rewrite
-                # exactly the populations through which dead-lane/dead-row
-                # garbage could enter the physical domain.
-                backend = "temporal"
-                self._pad_dims = (ny_pad, nx_pad)
-            else:
-                backend = "xla"
-        self.backend = backend
+        # "xla" (the default, what "auto" resolves to) or the C++ CPU
+        # library ("native", lb2d_tpu/native)
+        self.backend = resolve_backend(backend, extra=("native",))
 
         self.seed = seed
         if not init_state:
@@ -153,14 +99,7 @@ class PipeFlow(LBModel):
             # shard-wise instead of staging it on one device)
             return
         self.state = self._init_state(np.random.RandomState(seed))
-        if self._pad_dims is not None:
-            py = self._pad_dims[0] - self.ny
-            px = self._pad_dims[1] - self.nx
-            self.state = jnp.pad(self.state, ((0, 0), (0, py), (0, px)),
-                                 mode="edge")
         super().__init__()
-        if self.backend == "resident":
-            self._install_resident_run()
 
     # --- geometry hooks (overridden by subclasses) ---------------------------
     def _characteristic_length(self, diameter):
@@ -220,41 +159,8 @@ class PipeFlow(LBModel):
                 f, self.inlet_rho, self.outlet_rho)
         return lambda f: zou_he_pressure_bcs(f, self.inlet_rho, self.outlet_rho)
 
-    def _fused_capable(self) -> bool:
-        return True  # pressure-BC family; subclasses may opt out
-
-    def make_step(self):
-        backend = getattr(self, "backend", "xla")
-        if backend == "resident":
-            # the resident kernel replaces the whole run loop, not the
-            # single step; _install_resident_run swaps _run_compiled after
-            # LBModel.__init__ builds the default. make_step only provides
-            # the oracle single-step (unused in the hot path).
-            if self._pad_dims is not None:
-                xla = self._make_xla_step()
-                py = self._pad_dims[0] - self.ny
-                px = self._pad_dims[1] - self.nx
-                ny, nx = self.ny, self.nx
-
-                def single(fp):
-                    f = xla(fp[:, :ny, :nx])
-                    return jnp.pad(f, ((0, 0), (0, py), (0, px)),
-                                   mode="edge")
-
-                return single
-            return self._make_xla_step()
-        if backend == "temporal":
-            return self._make_temporal_step()
-        if backend == "pipelined":
-            return self._make_kernel_step(make_pipelined_pipe_step)
-        if backend == "fused":
-            return self._make_kernel_step(make_fused_pipe_step)
-        # "native" uses the XLA step only for getters/remainders; its run()
-        # path goes through the C++ library (see run()).
-        return self._make_xla_step()
-
     def run(self, num_iterations, *, timed=False):
-        if getattr(self, "backend", "xla") != "native":
+        if self.backend != "native":
             return super().run(num_iterations, timed=timed)
         # C++ CPU backend (lb2d_tpu/native): the compiled-extension path,
         # mirroring the reference's Cython backend role.
@@ -276,96 +182,7 @@ class PipeFlow(LBModel):
         self.steps_taken += num_iterations
         return self
 
-    def _kernel_kwargs(self):
-        return dict(
-            ny=self.ny, nx=self.nx, omega=self.omega,
-            inlet_rho=self.inlet_rho, outlet_rho=self.outlet_rho,
-            equilibrium=self.equilibrium,
-            lattice=self.lattice, dtype=self.dtype,
-            interpret=jax.default_backend() != "tpu",
-        )
-
-    def _install_resident_run(self):
-        """Swap the fori-loop runner for the grid-resident kernel: the
-        whole ``run(n)`` becomes ONE kernel launch with the state in VMEM
-        and ``n`` a runtime scalar (see ``make_resident_pipe_step``)."""
-        has_obstacle = self.obstacle_mask is not None
-        kw = self._kernel_kwargs()
-        if self._pad_dims is not None:
-            kw.update(ny=self._pad_dims[0], nx=self._pad_dims[1],
-                      ny_phys=self.ny, nx_phys=self.nx)
-        run_k = make_resident_pipe_step(has_obstacle=has_obstacle, **kw)
-        if has_obstacle:
-            mask = self.obstacle_mask.astype(jnp.int32)
-            if self._pad_dims is not None:
-                py = self._pad_dims[0] - self.ny
-                px = self._pad_dims[1] - self.nx
-                mask = jnp.pad(mask, ((0, py), (0, px)))
-            self._run_compiled = jax.jit(
-                lambda f, n: run_k(f, n, mask), donate_argnums=0)
-        else:
-            self._run_compiled = jax.jit(run_k, donate_argnums=0)
-
-    def _make_temporal_step(self, k_steps=None):
-        if k_steps is None:
-            # deepest K whose VMEM ring fits (4096^2: K=6 16.9k / K=8
-            # 18.3k MLUPS; obstacle rings shrink the budget the same way)
-            ny, nx = self._pad_dims or (self.ny, self.nx)
-            k_steps = next(k for k in (8, 6, 4, 2)
-                           if supports_temporal(ny, nx, k))
-        has_obstacle = self.obstacle_mask is not None
-        kw = self._kernel_kwargs()
-        if self._pad_dims is not None:
-            kw.update(ny=self._pad_dims[0], nx=self._pad_dims[1],
-                      ny_phys=self.ny, nx_phys=self.nx)
-        stepK = make_temporal_pipe_step(k_steps=k_steps,
-                                        has_obstacle=has_obstacle, **kw)
-        self.steps_per_call = k_steps
-
-        # remainder (iteration counts % k_steps) runs single steps
-        if self._pad_dims is not None:
-            # slice to physical, run one XLA step, re-pad
-            xla = self._make_xla_step()
-            py = self._pad_dims[0] - self.ny
-            px = self._pad_dims[1] - self.nx
-            ny, nx = self.ny, self.nx
-
-            def single(fp):
-                f = xla(fp[:, :ny, :nx])
-                return jnp.pad(f, ((0, 0), (0, py), (0, px)), mode="edge")
-
-            self._single_step = single
-        elif supports_pipelined(self.ny, self.nx):
-            single = make_pipelined_pipe_step(has_obstacle=has_obstacle,
-                                              **self._kernel_kwargs())
-            if has_obstacle:
-                m = self.obstacle_mask.astype(jnp.int32)
-                self._single_step = lambda f: single(f, m)
-            else:
-                self._single_step = single
-        else:
-            self._single_step = self._make_xla_step()
-
-        if has_obstacle:
-            mask = self.obstacle_mask.astype(jnp.int32)
-            if self._pad_dims is not None:
-                py = self._pad_dims[0] - self.ny
-                px = self._pad_dims[1] - self.nx
-                mask = jnp.pad(mask, ((0, py), (0, px)))
-            return lambda f: stepK(f, mask)
-        return stepK
-
-    def _make_kernel_step(self, maker):
-        fused = maker(
-            has_obstacle=self.obstacle_mask is not None,
-            **self._kernel_kwargs(),
-        )
-        if self.obstacle_mask is not None:
-            mask = self.obstacle_mask.astype(jnp.int32)
-            return lambda f: fused(f, mask)
-        return fused
-
-    def _make_xla_step(self):
+    def make_step(self):
         feq_fn = self._feq_fn()
         hydro_fn = self._hydro_fn()
         bc_fn = self._bc_fn()
@@ -393,14 +210,8 @@ class PipeFlow(LBModel):
 
         return step
 
-    def _f_phys(self):
-        """The physical-domain populations (drops padding if present)."""
-        if self._pad_dims is not None:
-            return self.state[:, :self.ny, :self.nx]
-        return self.state
-
     def device_field(self, name):
-        f = self._f_phys()
+        f = self.state
         rho, u, v = self._hydro_fn()(f)
         return {"rho": rho, "u": u, "v": v}.get(name)
 
@@ -408,7 +219,7 @@ class PipeFlow(LBModel):
     def get_fields(self) -> dict:
         """All fields in LB units, as numpy arrays indexed ``[x, y]``
         (``f``/``feq`` as ``[9, nx, ny]``) to match the reference layout."""
-        f = self._f_phys()
+        f = self.state
         rho, u, v = self._hydro_fn()(f)
         feq = self._feq_fn()(rho, u, v)
         return {

@@ -8,7 +8,7 @@ walls + corners via weight-renormalized redistribution (``:149-254``), and a
 convergence test ``avg|drho| / avg rho < tol`` that stops the iteration and
 triggers a central-difference negative gradient (``solver.py:324-358``).
 
-TPU-native changes: the reference does a device->host sync *per iteration*
+Changes from the reference: it does a device->host sync *per iteration*
 for the convergence reduction (``solver.py:348-352``); here the entire
 iterate-check-stop loop is one ``lax.while_loop`` with on-device reductions
 — zero host round-trips.

@@ -137,17 +137,6 @@ class RocketYeast(LBModel):
         return pseudo_force(psi, self.G_chen, self.lattice)
 
     def make_step(self):
-        import jax
-
-        if jax.default_backend() == "tpu":
-            step = self._make_kernel_step()
-            if step is not None:
-                self.backend = "kernel"
-                return step
-        self.backend = "xla"
-        return self._make_xla_step()
-
-    def _make_xla_step(self):
         lat = self.lattice
 
         def step(f):
@@ -158,48 +147,6 @@ class RocketYeast(LBModel):
             return self._collide(f, feq, rho, self._force(rho))
 
         return step
-
-    _forces_only = False
-
-    def _make_kernel_step(self, k_steps=None, interpret=None):
-        """Fused temporal kernel (``ops/fused_coupled.py``): the whole step
-        — stream, gradient velocity, pseudo-force, growth/production
-        collide — is local, so K LB steps fuse per HBM sweep. Returns None
-        on unaligned grids (XLA fallback)."""
-        import jax
-
-        from ..ops.fused_coupled import (make_rocket_yeast_step,
-                                         pick_coupled_tiling)
-
-        ny, nx = self.ny, self.nx
-        if self.dtype != jnp.float32:
-            return None
-        if pick_coupled_tiling(ny, nx, 1, 0, k_steps) is None:
-            return None
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
-        kw = {}
-        if self._forces_only:
-            kw = dict(forces_only=True, c_o=self.c_o, alpha=self.alpha)
-        kernel = make_rocket_yeast_step(
-            H=ny, nx=nx, omega=float(self.omega), omega_c=float(self.omega_c),
-            lb_G=float(self.lb_G), lb_Gc=float(self.lb_Gc),
-            epsilon=float(self.epsilon), rho_o=float(self.rho_o),
-            G_chen=float(self.G_chen), dtype=self.dtype,
-            interpret=interpret, k_steps=k_steps, **kw)
-        CH, K = kernel.chunk, kernel.k_steps
-        q = self.lattice.q
-        P = q * 2
-
-        def stepK(f):
-            flat = f.reshape(P, ny, nx)
-            top = flat[:, ny - CH:, :]   # true periodic wrap rows
-            bot = flat[:, :CH, :]
-            return kernel(flat, top, bot).reshape(q, 2, ny, nx)
-
-        self.steps_per_call = K
-        self._single_step = self._make_xla_step()
-        return stepK
 
     def device_field(self, name):
         if name == "rho":
@@ -225,8 +172,6 @@ class RocketYeast(LBModel):
 class RocketYeastForcesOnly(RocketYeast):
     """Velocity = pseudo-force + surface-tension force fields directly
     (``rocket_yeast_forces_only.py``); no force term in collision."""
-
-    _forces_only = True
 
     def __init__(self, c_o=0.25, alpha=2.0, **kwargs):
         self.c_o = c_o

@@ -18,7 +18,6 @@ Rebuilds ``reaction_diffusion/surfactant_nutrient_waves.py``:
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -73,11 +72,7 @@ class SurfactantNutrientWave(LBModel):
 
     def __init__(self, Lx=1.0, Ly=1.0, vc=1.0, lam=1.0, Dn=1.0 / 4.0, R0=5.0,
                  time_prefactor=1.0, N=50, seed=0, check_max_ulb=False,
-                 mach_tolerance=0.1, dtype=jnp.float32, method="auto",
-                 stale_velocity=1, solve_precision="highest"):
-        # stale_velocity > 1: sweep-stale mode (see ScreenedFisherWave) —
-        # one spectral solve per K-step kernel sweep instead of per step.
-        self.stale_velocity = int(stale_velocity)
+                 mach_tolerance=0.1, dtype=jnp.float32, method="auto"):
         self.Lx, self.Ly = Lx, Ly
         self.D, self.Dn, self.G = 1.0 / 4.0, Dn, 1.0
         self.vc, self.lam, self.R0 = vc, lam, R0
@@ -103,8 +98,7 @@ class SurfactantNutrientWave(LBModel):
         self.ny = int(np.round(N * Ly))
 
         self._velocity = _ScreenedVelocity(self.ny, self.nx, lam,
-                                           self.delta_x, vc, self.ulb, method,
-                                           mm=solve_precision)
+                                           self.delta_x, vc, self.ulb, method)
 
         rng = np.random.RandomState(seed)
         X, Y = np.meshgrid(np.arange(self.nx), np.arange(self.ny))
@@ -159,18 +153,6 @@ class SurfactantNutrientWave(LBModel):
         return None
 
     def make_step(self):
-        # stale_velocity > 1 exists only on the kernel path: engage it
-        # even off-TPU (interpret mode)
-        if (jax.default_backend() == "tpu"
-                or getattr(self, "stale_velocity", 1) > 1):
-            step = self._make_kernel_step()
-            if step is not None:
-                self.backend = "kernel"
-                return step
-        self.backend = "xla"
-        return self._make_xla_step()
-
-    def _make_xla_step(self):
         from .multifield import _stream_fields
 
         lat = self.lattice
@@ -183,82 +165,6 @@ class SurfactantNutrientWave(LBModel):
             feq = self._feq(rho, u, v)
             return self._collide(f, feq, rho, force=self._force(rho))
 
-        return step
-
-    _clumpy = False
-
-    def _make_kernel_step(self, interpret=None, k_steps=None):
-        """Fused kernel (``ops/fused_coupled.py``): growth coupling (and
-        the Clumpy pseudo-force) fuse with stream+collide; the velocity —
-        a global screened-Poisson solve of the *post-stream* population
-        density — is computed outside (periodic rolls + spectral solve)
-        and enters as a 2-plane external input. K=1 re-solves it every
-        step (exact); ``stale_velocity`` > 1 holds it per K-sweep."""
-        from ..ops.fused_coupled import (make_surfactant_step,
-                                         pick_coupled_tiling)
-
-        K = int(k_steps if k_steps is not None
-                else getattr(self, "stale_velocity", 1))
-        ny, nx = self.ny, self.nx
-        if self.dtype != jnp.float32:
-            return None
-        belt = 1 if self._clumpy else 0
-        # the density-emit D stage needs one more valid halo row per step
-        # (K (1+belt) <= CH-1): demote the requested sweep depth to the
-        # deepest feasible K rather than dropping off the kernel path
-        while K > 1 and pick_coupled_tiling(ny, nx, belt, 2, K,
-                                            emit=1) is None:
-            K -= 1
-        if pick_coupled_tiling(ny, nx, belt, 2, K, emit=1) is None:
-            return None
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
-        kw = {}
-        if self._clumpy:
-            kw = dict(clumpy=True, rho_o=float(self.rho_o),
-                      G_chen=float(self.G_chen))
-        kernel = make_surfactant_step(
-            H=ny, nx=nx, omega=float(self.omega), omega_n=float(self.omega_n),
-            lb_G=float(self.lb_G), dtype=self.dtype, interpret=interpret,
-            k_steps=K, emit=True, **kw)
-        if K > 1:
-            self.steps_per_call = K
-            self._single_step = (self._make_kernel_step(
-                interpret=interpret, k_steps=1) or self._make_xla_step())
-        CH = kernel.chunk
-        q = self.lattice.q
-        P = q * 2
-        lat = self.lattice
-        velocity = self._velocity
-
-        def roll_density(f):
-            # post-stream population density via periodic rolls (exact
-            # order match with the XLA step: velocity follows the move)
-            r = None
-            for j in range(q):
-                p = f[j, self.POP]
-                if lat.cy[j]:
-                    p = jnp.roll(p, lat.cy[j], axis=0)
-                if lat.cx[j]:
-                    p = jnp.roll(p, lat.cx[j], axis=1)
-                r = p if r is None else r + p
-            return r
-
-        # density-emit carry (f, rho): see ScreenedFisherWave — the
-        # kernel's D stage supplies the next step's post-stream population
-        # density, removing both the roll pass and the protective copy
-        def step(carry):
-            f, rho = carry
-            u, v = velocity(rho[0])
-            ext = jnp.stack([u, v]).astype(self.dtype)
-            flat = f.reshape(P, ny, nx)
-            top = flat[:, ny - CH:, :]
-            bot = flat[:, :CH, :]
-            out, rho_next = kernel(flat, top, bot, ext)
-            return out.reshape(q, 2, ny, nx), rho_next
-
-        step.carried = True
-        step.init_carry = lambda f: (f, roll_density(f)[None])
         return step
 
     def device_field(self, name):
@@ -285,8 +191,6 @@ class SurfactantNutrientWave(LBModel):
 class ClumpySurfactantNutrientWave(SurfactantNutrientWave):
     """Adds Shan-Chen clumping to the population field
     (``surfactant_nutrient_waves.py:437-521``)."""
-
-    _clumpy = True
 
     def __init__(self, rho_o=1.0, G_chen=-1.0, **kwargs):
         self.rho_o = float(rho_o)

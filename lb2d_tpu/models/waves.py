@@ -12,7 +12,8 @@
   own density, re-solved spectrally **every step**
   (``screened_poisson_waves.py:337-361``). The reference round-trips
   LBM kernels and gpyfft plans through one command queue; here the spectral
-  solve (matmul-DFT on TPU) is fused into the same jitted step.
+  solve (``jnp.fft``; the matmul DFT on a multi-device mesh) is part of the
+  same jitted step.
 * :class:`RepellingFisherWave` — ``reaction_diffusion/repelling_fisher_waves_old.py``
   (``Repelling_Fisher_Wave``): like the screened wave but the potential comes
   from the *LBM* Poisson solver run to convergence inside each outer step
@@ -97,74 +98,12 @@ class NoisyAdvectedFisherWave(LBModel):
         self.state = (feq0 * jnp.asarray(perturb, dtype),
                       jax.random.PRNGKey(rng_seed))
         super().__init__()
-        if getattr(self, "backend", None) == "resident":
-            self._install_resident_run()
 
     @property
     def num_cells(self):
         return self.nx * self.ny
 
     def make_step(self):
-        from ..ops.fused import supports_resident, supports_temporal
-
-        if (jax.default_backend() == "tpu"
-                and supports_resident(self.ny, self.nx, False,
-                                      self.lattice.q)):
-            # runner swapped post-init for the grid-resident kernel
-            # (small periodic grids; exact wrap, whole run one launch)
-            self.backend = "resident"
-            return self._make_xla_stochastic_step()
-        # deeper blocking keeps winning for this VPU-heavy kernel
-        # (measured at 2048^2: K=4 6960 / K=6 8437 / K=8 9342 MLUPS)
-        K = 8 if self.ny >= 24 * 8 else 4
-        if (jax.default_backend() == "tpu"
-                and supports_temporal(self.ny, self.nx, K)
-                and self.ny >= 24 * K):
-            self.backend = "temporal"
-            return self._make_noisy_temporal_step(K)
-        self.backend = "xla"
-        return self._make_xla_stochastic_step()
-
-    def _make_noisy_temporal_step(self, K, interpret=None):
-        from .diffusion import make_noisy_temporal_step
-
-        stepK = make_noisy_temporal_step(
-            self.ny, self.nx, self.omega,
-            float(np.asarray(self.u).ravel()[0]),
-            float(np.asarray(self.v).ravel()[0]),
-            self.lb_Gd, self.lb_Dg, K, self._make_xla_stochastic_step(),
-            self.dtype, interpret=interpret)
-        self.steps_per_call = K
-        self._single_step = self._make_xla_stochastic_step()
-        return stepK
-
-    def _install_resident_run(self, interpret=None):
-        """Grid-resident noisy-Fisher kernel (on-core PRNG, one launch per
-        ``run(n)``) — same wiring as
-        ``ReactionAdvectionDiffusionStochastic._install_resident_run``."""
-        from ..ops.fused import make_resident_pipe_step
-
-        kw = {} if interpret is None else {"interpret": interpret}
-        run_k = make_resident_pipe_step(
-            ny=self.ny, nx=self.nx, omega=float(self.omega),
-            physics="noisy_fisher",
-            u_lb=float(np.asarray(self.u).ravel()[0]),
-            v_lb=float(np.asarray(self.v).ravel()[0]),
-            lb_G=float(self.lb_Gd), lb_Dg=float(self.lb_Dg),
-            dtype=self.dtype, **kw)
-
-        def run(state, n):
-            f, key = state
-            key, ks = jax.random.split(key)
-            seed = jax.lax.bitcast_convert_type(
-                jax.random.bits(ks, (), jnp.uint32), jnp.int32)
-            return (run_k(f, n, seed), key)
-
-        self._run_compiled = jax.jit(run, donate_argnums=0)
-        self.backend = "resident"
-        self.steps_per_call = 1
-
-    def _make_xla_stochastic_step(self):
         u, v = self.u, self.v
         lat = self.lattice
         omega = jnp.asarray(self.omega, self.dtype)
@@ -210,8 +149,7 @@ class _ScreenedVelocity:
     (``screened_poisson_waves.py:337-361``; axis note: xgrad varies along the
     reference's x-axis = our lane axis)."""
 
-    def __init__(self, ny, nx, lam, delta_x, vc, ulb, method="auto",
-                 mm="highest"):
+    def __init__(self, ny, nx, lam, delta_x, vc, ulb, method="auto"):
         # keep only 1-D frequency vectors as constants; the 2-D rescale /
         # gradient-multiplier fields are built in-graph per call (at 8192^2
         # each would be a 268 MB baked-in executable constant otherwise)
@@ -236,19 +174,7 @@ class _ScreenedVelocity:
         self._lam2 = np.float32(lam * lam)
         self.scale = np.float32(-vc * ulb)
         self.method = spectral_method(method)
-        # an explicit method= request ("matmul"/"fft") pins that exact
-        # path — only "auto"/"pallas" may promote to the Pallas solve
-        self._pallas_ok = method in ("auto", "pallas")
-        self._explicit_method = method not in ("auto", "pallas")
-        # The Pallas solve is a custom call GSPMD cannot partition; callers
-        # that evaluate the velocity on arrays sharded over a >1-device
-        # mesh (ShardedCoupled, SimulationRunner.shard_over) clear this so
-        # the partitionable matmul-DFT path runs instead.
-        self.allow_pallas = True
-        # matmul mode for the Pallas passes: "highest" (bf16x6 fp32
-        # emulation, rel err ~5e-5 at 8192^2) or "bf16x3" (3 MXU passes,
-        # ~27% faster solve, rel err ~3e-4 — see ops/dft_pallas.py)
-        self.mm = mm
+        self._explicit_method = method != "auto"
 
     def _fields(self):
         KX = self._fx[None, :]
@@ -258,56 +184,16 @@ class _ScreenedVelocity:
         ay = (2.0 * np.pi) * self._gy[:, None]
         return rescale, ax, ay
 
-    def ext_planes(self, rho, amp):
-        """``stack(amp*ux, amp*uy) [2, ny, nx]`` where ``(ux, uy)`` is
-        what ``__call__`` returns — the mc engine's external-force
-        hand-off. On the Pallas path the scale and the stack are fused
-        into the inverse-y kernel's output write (``out_scale``), killing
-        the separate XLA multiply+stack pass (~1.8 ms of the 8192^2
-        config-5 step); other paths stack the scaled gradients the
-        ordinary way (same values)."""
-        ny = self._fy.shape[0]
-        nx = self._fx.shape[0]
-        a = float(amp) * float(self.scale)
-        if self.method != "fft" and ny % 2 == 0:
-            from ..ops.dft_pallas import (
-                screened_gradients_pl, supports_pallas_solve)
-            if (self.allow_pallas and self._pallas_ok
-                    and jax.default_backend() == "tpu"
-                    and supports_pallas_solve(ny, nx)):
-                return screened_gradients_pl(
-                    rho, self._fx, self._fy, self._gx, self._gy,
-                    self._lam2, mm=self.mm, out_scale=a)
-        ux, uy = self(rho)
-        return jnp.stack(((amp * ux).astype(jnp.float32),
-                          (amp * uy).astype(jnp.float32)))
-
     def __call__(self, rho):
         # Both gradient spectra are Hermitian (real rho x odd-real
         # multiplier), so ONE complex inverse transform carries both:
         # ifft(A + iB) = xg + i yg exactly. 2 transforms per solve, not 3.
-        if self.method != "fft":
-            ny = self._fy.shape[0]
-            nx = self._fx.shape[0]
-            if ny % 2 == 0:
-                from ..ops.dft_pallas import (
-                    screened_gradients_pl, supports_pallas_solve)
-                if (self.allow_pallas and self._pallas_ok
-                        and jax.default_backend() == "tpu"
-                        and supports_pallas_solve(ny, nx)):
-                    # Pallas 4-step passes: layout-controlled corner
-                    # turns in VMEM instead of XLA's relayout copies
-                    # (31.8 ms vs 54.1 ms at 8192^2 — see ops/dft_pallas.py)
-                    xg, yg = screened_gradients_pl(
-                        rho, self._fx, self._fy, self._gx, self._gy,
-                        self._lam2, mm=self.mm)
-                    return self.scale * xg, self.scale * yg
-                # fused real-input half-spectrum solve (see
-                # lb2d_tpu/ops/dft.py module comment)
-                xg, yg = screened_gradients_mm(
-                    rho, self._fx, self._fy, self._gx, self._gy,
-                    self._lam2)
-                return self.scale * xg, self.scale * yg
+        if self.method == "matmul" and self._fy.shape[0] % 2 == 0:
+            # fused real-input half-spectrum solve (see
+            # lb2d_tpu/ops/dft.py module comment)
+            xg, yg = screened_gradients_mm(
+                rho, self._fx, self._fy, self._gx, self._gy, self._lam2)
+            return self.scale * xg, self.scale * yg
         rescale, ax, ay = self._fields()
         if self.method == "fft":
             chat = jnp.fft.fft2(rho.astype(jnp.complex64)) * rescale
@@ -330,15 +216,7 @@ class ScreenedFisherWave(LBModel):
 
     def __init__(self, Lx=1.0, Ly=1.0, vc=1.0, lam=1.0, R0=5.0,
                  time_prefactor=1.0, N=50, seed=0, check_max_ulb=False,
-                 mach_tolerance=0.1, dtype=jnp.float32, method="auto",
-                 stale_velocity=1, solve_precision="highest"):
-        # stale_velocity > 1: sweep-stale mode — the screened-Poisson
-        # velocity is re-solved once per K-step kernel sweep instead of
-        # every step (the advection field varies on the slow reaction
-        # timescale; error vs exact coupling is quantified in
-        # test_waves.py::test_screened_fisher_stale_velocity). 1 = exact
-        # (reference semantics, screened_poisson_waves.py:373-387).
-        self.stale_velocity = int(stale_velocity)
+                 mach_tolerance=0.1, dtype=jnp.float32, method="auto"):
         self.Lx, self.Ly = Lx, Ly
         self.D, self.G = 1.0 / 4.0, 1.0
         self.vc, self.lam, self.R0 = vc, lam, R0
@@ -361,12 +239,9 @@ class ScreenedFisherWave(LBModel):
         self.nx = int(np.round(N * Lx))
         self.ny = int(np.round(N * Ly))
 
-        # solve_precision="bf16x3": 3-pass split-bf16 matmuls in the
-        # Pallas solve (27% faster at 8192^2, rel err ~3e-4 vs ~5e-5 —
-        # see add_screened_poisson_force / ops/dft_pallas.py)
         self._velocity = _ScreenedVelocity(self.ny, self.nx, lam,
                                            self.delta_x, vc, self.ulb,
-                                           method, mm=solve_precision)
+                                           method)
 
         X, Y = np.meshgrid(np.arange(self.nx), np.arange(self.ny))
         Xd = (X - self.nx // 2) / N
@@ -392,18 +267,6 @@ class ScreenedFisherWave(LBModel):
         return self.nx * self.ny
 
     def make_step(self):
-        # stale_velocity > 1 exists only on the kernel path, so the mode
-        # engages it even off-TPU (interpret mode) rather than silently
-        # running exact physics
-        if jax.default_backend() == "tpu" or self.stale_velocity > 1:
-            step = self._make_kernel_step()
-            if step is not None:
-                self.backend = "kernel"
-                return step
-        self.backend = "xla"
-        return self._make_xla_step()
-
-    def _make_xla_step(self):
         lat = self.lattice
         omega = jnp.asarray(self.omega, self.dtype)
         w = jnp.asarray(lat.w_np())[:, None, None]
@@ -418,64 +281,6 @@ class ScreenedFisherWave(LBModel):
             react = G * rho * (1.0 - rho)
             return bgk(f, feq, omega) + w * react
 
-        return step
-
-    def _make_kernel_step(self, interpret=None, k_steps=None):
-        """Fused LBM sweep (``ops/fused_coupled.py``) with the
-        screened-Poisson velocity entering as 2 external planes, computed
-        from the post-stream density (exact order match with the XLA
-        step at K=1; K>1 holds it for the sweep — sweep-stale mode)."""
-        from ..ops.fused_coupled import (make_screened_fisher_step,
-                                         pick_coupled_tiling)
-
-        K = int(k_steps if k_steps is not None else self.stale_velocity)
-        ny, nx = self.ny, self.nx
-        if self.dtype != jnp.float32:
-            return None
-        # demote to the deepest emit-feasible sweep depth (see surfactant)
-        while K > 1 and pick_coupled_tiling(ny, nx, 0, 2, K, emit=1,
-                                            C=1) is None:
-            K -= 1
-        if pick_coupled_tiling(ny, nx, 0, 2, K, emit=1, C=1) is None:
-            return None
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
-        kernel = make_screened_fisher_step(
-            H=ny, nx=nx, omega=float(self.omega), lb_G=float(self.lb_G),
-            dtype=self.dtype, interpret=interpret, k_steps=K, emit=True)
-        if K > 1:
-            self.steps_per_call = K
-            self._single_step = (self._make_kernel_step(
-                interpret=interpret, k_steps=1) or self._make_xla_step())
-        CH = kernel.chunk
-        lat = self.lattice
-        velocity = self._velocity
-
-        def roll_density(f):
-            r = None
-            for j in range(lat.q):
-                p = f[j]
-                if lat.cy[j]:
-                    p = jnp.roll(p, lat.cy[j], axis=0)
-                if lat.cx[j]:
-                    p = jnp.roll(p, lat.cx[j], axis=1)
-                r = p if r is None else r + p
-            return r
-
-        # density-emit carry (f, rho): the kernel's own D stage supplies
-        # the next step's post-stream density (bit-identical to the roll
-        # pass), so `f` has a single consumer and XLA inserts no
-        # protective copy around the aliased in-place kernel
-        def step(carry):
-            f, rho = carry
-            u, v = velocity(rho[0])
-            ext = jnp.stack([u, v]).astype(self.dtype)
-            top = f[:, ny - CH:, :]
-            bot = f[:, :CH, :]
-            return kernel(f, top, bot, ext)
-
-        step.carried = True
-        step.init_carry = lambda f: (f, roll_density(f)[None])
         return step
 
     def mach_number(self) -> float:

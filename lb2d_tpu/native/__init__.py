@@ -1,7 +1,7 @@
 """Native C++ CPU backend (the Cython-extension counterpart).
 
 The reference ships a compiled CPU path (``cython_dim.pyx`` built by
-``setup.py:8-10``) alongside its interpreted and device paths; this module is
+``setup.py:8-10``) alongside its pure-Python and device paths; this module is
 its equivalent here: ``lb_d2q9.cpp`` compiled on demand with the system g++
 (``-O3 -fopenmp``) and driven through ctypes — no pybind11 dependency.
 

@@ -2,10 +2,10 @@
 //
 // This is the framework's counterpart of the reference's compiled Cython
 // extension (LB_D2Q9/dimensionless/cython_dim.pyx, built by setup.py:8-10):
-// a host-CPU implementation of the same step the TPU kernels run, used as a
+// a host-CPU implementation of the same step the XLA path runs, used as a
 // fast CPU fallback and as an independent cross-backend oracle (the
 // reference verified python/cython/opencl against each other;
-// we verify xla/pallas/native).
+// we verify xla/native).
 //
 // Semantics match the OpenCL-verified update order (opencl_dim.py:372-387):
 // stream -> Zou-He pressure BCs (D2Q9.cl:173-261) -> obstacle bounce-back

@@ -26,6 +26,8 @@ __all__ = [
     "zou_he_velocity_bcs",
     "zou_he_velocity_inlet_open_outlet",
     "bounce_back_obstacle",
+    "zou_he_pressure_masked",
+    "noflux_walls_masked",
 ]
 
 
@@ -210,3 +212,134 @@ def bounce_back_obstacle(
     """
     flipped = f[jnp.asarray(lattice.opp)]
     return jnp.where(mask.astype(bool)[None], flipped, f)
+
+
+def zou_he_pressure_masked(st, rowid, laneid, ny, nx, inlet_rho, outlet_rho,
+                           incompressible):
+    """Masked-select form of :func:`zou_he_pressure_bcs` /
+    :func:`zou_he_pressure_bcs_incompressible` (inlet/outlet columns, solid
+    walls, 4 corners; ``D2Q9.cl:173-261`` / ``D2Q9i.cl:173-261``) on a list
+    of 9 streamed planes. ``rowid``/``laneid`` are *global* cell coordinates
+    broadcast over the planes, so the same code serves a whole grid and one
+    shard of it (no edge scatters, which GSPMD mispartitions on sharded
+    arrays)."""
+    s = tuple(st)  # pre-BC snapshot (D2Q9.cl:187-195)
+
+    row_int = (rowid >= 1) & (rowid <= ny - 2)
+    lane_int = (laneid >= 1) & (laneid <= nx - 2)
+    lane0 = laneid == 0
+    laneN = laneid == nx - 1
+    row0 = rowid == 0
+    rowN = rowid == ny - 1
+
+    if incompressible:
+        # D2Q9i.cl:194-206
+        u_in = -s[0] - s[2] - 2 * s[3] - s[4] - 2 * s[6] - 2 * s[7] + inlet_rho
+        in1 = (1.0 / 3.0) * (3 * s[3] + 2 * u_in)
+        in5 = (1.0 / 6.0) * (-3 * s[2] + 3 * s[4] + 6 * s[7] + u_in)
+        in8 = (1.0 / 6.0) * (3 * s[2] - 3 * s[4] + 6 * s[6] + u_in)
+        u_out = s[0] + 2 * s[1] + s[2] + s[4] + 2 * s[5] + 2 * s[8] - outlet_rho
+        out3 = (1.0 / 3.0) * (3 * s[1] - 2 * u_out)
+        out6 = (1.0 / 6.0) * (-3 * s[2] + 3 * s[4] + 6 * s[8] - u_out)
+        out7 = (1.0 / 6.0) * (3 * s[2] - 3 * s[4] + 6 * s[5] - u_out)
+    else:
+        # D2Q9.cl:198-210
+        u_in = -((s[0] + s[2] + 2 * s[3] + s[4] + 2 * s[6] + 2 * s[7]
+                  - inlet_rho) / inlet_rho)
+        in1 = s[3] + (2.0 / 3.0) * inlet_rho * u_in
+        in5 = -0.5 * s[2] + 0.5 * s[4] + s[7] + (1.0 / 6.0) * u_in * inlet_rho
+        in8 = 0.5 * s[2] - 0.5 * s[4] + s[6] + (1.0 / 6.0) * u_in * inlet_rho
+        u_out = (-1.0 + (s[0] + 2 * s[1] + s[2] + s[4] + 2 * s[5]
+                         + 2 * s[8]) / outlet_rho)
+        out3 = s[1] - (2.0 / 3.0) * outlet_rho * u_out
+        out6 = -0.5 * s[2] + 0.5 * s[4] + s[8] - (1.0 / 6.0) * u_out * outlet_rho
+        out7 = 0.5 * s[2] - 0.5 * s[4] + s[5] - (1.0 / 6.0) * u_out * outlet_rho
+
+    m_in = lane0 & row_int
+    m_out = laneN & row_int
+    st[1] = jnp.where(m_in, in1, st[1])
+    st[5] = jnp.where(m_in, in5, st[5])
+    st[8] = jnp.where(m_in, in8, st[8])
+    st[3] = jnp.where(m_out, out3, st[3])
+    st[6] = jnp.where(m_out, out6, st[6])
+    st[7] = jnp.where(m_out, out7, st[7])
+
+    # walls (D2Q9.cl:212-223), identical in both variants
+    m_n = rowN & lane_int
+    m_s = row0 & lane_int
+    st[4] = jnp.where(m_n, s[2], st[4])
+    st[8] = jnp.where(m_n, 0.5 * (-s[1] + s[3] + 2 * s[6]), st[8])
+    st[7] = jnp.where(m_n, 0.5 * (s[1] - s[3] + 2 * s[5]), st[7])
+    st[2] = jnp.where(m_s, s[4], st[2])
+    st[6] = jnp.where(m_s, 0.5 * (s[1] - s[3] + 2 * s[8]), st[6])
+    st[5] = jnp.where(m_s, 0.5 * (-s[1] + s[3] + 2 * s[7]), st[5])
+
+    # corners (D2Q9.cl:228-259)
+    bi = row0 & lane0
+    ti = rowN & lane0
+    bo = row0 & laneN
+    to = rowN & laneN
+    bi_d = 0.5 * (-s[0] - 2 * s[3] - 2 * s[4] - 2 * s[7] + inlet_rho)
+    ti_d = 0.5 * (-s[0] - 2 * s[2] - 2 * s[3] - 2 * s[6] + inlet_rho)
+    bo_d = 0.5 * (-s[0] - 2 * s[1] - 2 * s[4] - 2 * s[8] + outlet_rho)
+    to_d = 0.5 * (-s[0] - 2 * s[1] - 2 * s[2] - 2 * s[5] + outlet_rho)
+    st[1] = jnp.where(bi, s[3], jnp.where(ti, s[3], st[1]))
+    st[2] = jnp.where(bi, s[4], jnp.where(bo, s[4], st[2]))
+    st[5] = jnp.where(bi, s[7], jnp.where(ti, ti_d, jnp.where(bo, bo_d, st[5])))
+    st[6] = jnp.where(bi, bi_d, jnp.where(bo, s[8], jnp.where(to, to_d, st[6])))
+    st[8] = jnp.where(bi, bi_d, jnp.where(ti, s[6], jnp.where(to, to_d, st[8])))
+    st[4] = jnp.where(ti, s[2], jnp.where(to, s[2], st[4]))
+    st[7] = jnp.where(ti, ti_d, jnp.where(bo, bo_d, jnp.where(to, s[5], st[7])))
+    st[3] = jnp.where(bo, s[1], jnp.where(to, s[1], st[3]))
+    return st
+
+
+def noflux_walls_masked(st, rowid, laneid, ny, nx):
+    """No-flux walls + corners per field as masked selects
+    (``D2Q9_multifield_fisher.cl:184-289``). ``st`` is ``[q][F]`` streamed
+    planes; masks use global coordinates so the same code serves full
+    arrays and shards. (Masked selects, not ``.at[].set``
+    scatters: GSPMD miscompiles edge scatters on y-sharded arrays by
+    applying the global row -1 update to every shard's last local row.)"""
+    q = len(st)
+    F = len(st[0])
+    row_int = (rowid >= 1) & (rowid <= ny - 2)
+    lane_int = (laneid >= 1) & (laneid <= nx - 2)
+    lane0 = laneid == 0
+    laneN = laneid == nx - 1
+    row0 = rowid == 0
+    rowN = rowid == ny - 1
+    m_n = rowN & lane_int
+    m_s = row0 & lane_int
+    m_e = laneN & row_int
+    m_w = lane0 & row_int
+    ul = rowN & lane0
+    ur = rowN & laneN
+    br = row0 & laneN
+    bl = row0 & lane0
+    for p in range(F):
+        s = tuple(st[j][p] for j in range(q))
+        # north: f7<-f5, f4<-f2, f8<-f6 ; south: f2<-f4, f5<-f7, f6<-f8
+        st[7][p] = jnp.where(m_n, s[5], st[7][p])
+        st[4][p] = jnp.where(m_n, s[2], st[4][p])
+        st[8][p] = jnp.where(m_n, s[6], st[8][p])
+        st[2][p] = jnp.where(m_s, s[4], st[2][p])
+        st[5][p] = jnp.where(m_s, s[7], st[5][p])
+        st[6][p] = jnp.where(m_s, s[8], st[6][p])
+        # east: f3<-f1, f6<-f8, f7<-f5 ; west: f1<-f3, f5<-f7, f8<-f6
+        st[3][p] = jnp.where(m_e, s[1], st[3][p])
+        st[6][p] = jnp.where(m_e, s[8], st[6][p])
+        st[7][p] = jnp.where(m_e, s[5], st[7][p])
+        st[1][p] = jnp.where(m_w, s[3], st[1][p])
+        st[5][p] = jnp.where(m_w, s[7], st[5][p])
+        st[8][p] = jnp.where(m_w, s[6], st[8][p])
+        # corners (3 populations each)
+        st[1][p] = jnp.where(ul | bl, s[3], st[1][p])
+        st[4][p] = jnp.where(ul | ur, s[2], st[4][p])
+        st[8][p] = jnp.where(ul, s[6], st[8][p])
+        st[3][p] = jnp.where(ur | br, s[1], st[3][p])
+        st[7][p] = jnp.where(ur, s[5], st[7][p])
+        st[2][p] = jnp.where(br | bl, s[4], st[2][p])
+        st[6][p] = jnp.where(br, s[8], st[6][p])
+        st[5][p] = jnp.where(bl, s[7], st[5][p])
+    return st

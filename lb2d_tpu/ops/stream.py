@@ -2,7 +2,7 @@
 
 The reference streams with a bounds-checked scatter into a second buffer plus
 a full copy-back (``D2Q9.cl:139-171`` + ``copy_buffer``, driven at
-``opencl_dim.py:339-353``). On TPU we stream functionally with periodic rolls:
+``opencl_dim.py:339-353``). Here we stream functionally with periodic rolls:
 
 For every entry the non-wrapping reference move leaves stale (populations
 entering through a domain edge), the reference's ``move_bcs`` kernel

@@ -2,13 +2,13 @@
 
 The reference is strictly single-process/single-device
 (``opencl_dim.py:229-240`` picks ``devices[0]``); SURVEY.md §2.4 names
-``jax.distributed`` + ICI/DCN collectives as the TPU-native scaling answer
-beyond one host. This module is that entry point: initialize the JAX
-distributed runtime, build a global ``("y", "x")`` mesh over every chip in
-the job, and hand back the same mesh object every sharded surface in
-:mod:`lb2d_tpu.parallel.sharded` already consumes — the shard_map programs
-are SPMD over *global* devices, so nothing else changes between one host
-and many (halo ppermutes ride ICI within a slice and DCN across slices).
+``jax.distributed`` collectives as the scaling answer beyond one process.
+This module is that entry point: initialize the JAX distributed runtime,
+build a global ``("y", "x")`` mesh over every device in the job, and hand
+back the same mesh object every sharded surface in
+:mod:`lb2d_tpu.parallel.sharded` already consumes — the sharded programs
+are SPMD over *global* devices, so nothing else changes between one
+process and many.
 
 Single-process environments (including the CI dry run) use
 ``num_processes=1``, which skips the coordinator handshake entirely.
@@ -37,10 +37,10 @@ def init_distributed(coordinator_address: str | None = None,
 
     Mirrors ``jax.distributed.initialize``: every process in the job calls
     this before any computation, with the same ``coordinator_address``
-    (host:port of process 0) and its own ``process_id``. On TPU pods the
-    arguments are usually inferable from the environment and may be left
-    None. After this, ``jax.devices()`` enumerates every chip in the job
-    and the sharded models run unchanged over a :func:`global_mesh`.
+    (host:port of process 0) and its own ``process_id``; nothing infers
+    them from the environment. After this, ``jax.devices()`` enumerates
+    every device in the job and the sharded models run unchanged over a
+    :func:`global_mesh`.
     """
     global _initialized
     if num_processes in (None, 1) and coordinator_address is None:
@@ -48,14 +48,10 @@ def init_distributed(coordinator_address: str | None = None,
         # callers can treat the two paths uniformly
         _initialized = True
         return
-    try:
-        # CPU multi-process jobs (CI, the 2-process parity test) need a
-        # real cross-process collectives backend; gloo ships with jaxlib.
-        # TPU jobs never enter here (platforms is unset / "tpu").
-        if "cpu" in str(getattr(jax.config, "jax_platforms", "") or ""):
-            jax.config.update("jax_cpu_collectives_implementation", "gloo")
-    except Exception:
-        pass
+    if "cpu" in str(jax.config.jax_platforms or ""):
+        # CPU multi-process jobs (the 2-process parity test) need a real
+        # cross-process collectives backend; gloo ships with jaxlib.
+        jax.config.update("jax_cpu_collectives_implementation", "gloo")
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
@@ -65,26 +61,18 @@ def init_distributed(coordinator_address: str | None = None,
     _initialized = True
 
 
-def global_mesh(shape: tuple[int, int] | None = None,
-                contiguous_y: bool = True) -> Mesh:
+def global_mesh(shape: tuple[int, int] | None = None) -> Mesh:
     """A ``("y", "x")`` mesh over every device in the (possibly
-    multi-process) job.
-
-    With ``contiguous_y`` (default) devices keep enumeration order along y
-    first, so each process's addressable shards are contiguous grid rows —
-    y-halo ppermutes cross process boundaries only at shard seams (DCN
-    traffic is one CH-row chunk per seam per sweep; everything interior
-    rides ICI).
-    """
+    multi-process) job, factored as square as possible unless ``shape`` is
+    given. Devices keep enumeration order along y first, so each process's
+    addressable shards are contiguous grid rows and y-halo exchanges cross
+    process boundaries only at shard seams."""
     devices = jax.devices()
     n = len(devices)
     if shape is None:
         my = int(np.floor(np.sqrt(n)))
         while n % my:
             my -= 1
-        shape = (n // my, my) if contiguous_y else (my, n // my)
-        # prefer the taller mesh: y-decomposition is the kernel fast path
-        if shape[0] < shape[1]:
-            shape = (shape[1], shape[0])
+        shape = (n // my, my)
     assert shape[0] * shape[1] == n, (shape, n)
     return Mesh(np.asarray(devices).reshape(shape), ("y", "x"))

@@ -2,8 +2,8 @@
 
 The reference is single-device (``opencl_dim.py:229-240`` picks
 ``devices[0]``); scaling the grid beyond one chip is done here by sharding
-``f[Q, ny, nx]`` over a 2-D TPU mesh and exchanging 1-cell-wide halos with
-``jax.lax.ppermute`` over ICI each step — the stencil analogue of ring
+``f[Q, ny, nx]`` over a 2-D device mesh and exchanging 1-cell-wide halos
+with ``jax.lax.ppermute`` each step — the stencil analogue of ring
 collectives. Streaming then becomes pure local slicing of the halo-extended
 block (no rolls, no wrap), and the global Zou-He boundary is applied with
 global-coordinate masks.

@@ -1,31 +1,38 @@
-"""Multi-chip domain decomposition for the flow family.
+"""Multi-device domain decomposition.
 
-Shards ``f[9, ny, nx]`` over a 2-D device mesh (axes ``("y", "x")``) and runs
-the full stream -> BC -> hydro -> feq -> collide step inside ``shard_map``:
-streaming reads come from a 1-cell ``ppermute`` halo exchange
-(:mod:`lb2d_tpu.parallel.halo`), boundary conditions are applied with
-global-coordinate masks (shared tile math with the fused Pallas kernel), and
-everything else is shard-local. This is the scaling answer the reference
-lacks entirely (single device, ``opencl_dim.py:239-240``).
+* Flow family (:class:`ShardedPipeFlow`): shards ``f[9, ny, nx]`` over a 2-D
+  device mesh (axes ``("y", "x")``) and runs the full stream -> BC -> hydro
+  -> feq -> collide step inside ``shard_map``: streaming reads come from a
+  1-cell ``ppermute`` halo exchange (:mod:`lb2d_tpu.parallel.halo`),
+  boundary conditions are applied with global-coordinate masks
+  (:func:`~lb2d_tpu.ops.boundary.zou_he_pressure_masked`), and everything
+  else is shard-local.
+* Every other family (:class:`ShardedDiffusion`, :class:`ShardedMultifield`,
+  :class:`ShardedCoupled`): the family's own XLA step under GSPMD. The state
+  carries a ``NamedSharding`` over its two grid axes, so periodic rolls
+  become halo ``collective-permute``s; boundary code uses masked selects,
+  never ``.at[edge].set`` (GSPMD mispartitions edge scatters on sharded
+  arrays).
+
+This is the scaling answer the reference lacks entirely (single device,
+``opencl_dim.py:239-240``).
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..core.lattice import Lattice, D2Q9
-from ..ops.fused import _moments_feq_collide, _zou_he_tile, supports_temporal
-from ..ops.fused_halo import make_temporal_halo_step, supports_temporal_halo
-from .halo import _ring_shift, extend_with_halo
+from ..core.lattice import D2Q9
+from ..models.base import resolve_backend
+from ..ops.boundary import zou_he_pressure_masked
+from ..ops.collide import moments_feq_collide
+from .halo import extend_with_halo
 
 __all__ = [
     "make_sharded_pipe_step",
-    "make_sharded_temporal_step",
     "make_mesh",
     "ShardedPipeFlow",
     "ShardedDiffusion",
@@ -65,7 +72,6 @@ def make_sharded_pipe_step(
     outlet_rho: float,
     equilibrium: str = "compressible",
     has_obstacle: bool = False,
-    lattice: Lattice = D2Q9,
     dtype=jnp.float32,
 ):
     """Build a sharded ``step(f [, mask]) -> f`` (and the matching sharding).
@@ -78,12 +84,12 @@ def make_sharded_pipe_step(
     assert ny % my == 0 and nx % mx == 0, (
         f"grid {ny}x{nx} must divide mesh {my}x{mx}")
     H, W = ny // my, nx // mx
-    q = lattice.q
+    q = D2Q9.q
     incompressible = equilibrium == "incompressible"
     w_inlet = np.asarray(inlet_rho, dtype)
     w_outlet = np.asarray(outlet_rho, dtype)
     w_omega = np.asarray(omega, dtype)
-    cxs, cys = lattice.cx, lattice.cy
+    cxs, cys = D2Q9.cx, D2Q9.cy
 
     y_axis = "y" if my > 1 else None
     x_axis = "x" if mx > 1 else None
@@ -100,11 +106,10 @@ def make_sharded_pipe_step(
         rowid = jax.lax.broadcasted_iota(jnp.int32, (H, W), 0) + y0
         laneid = jax.lax.broadcasted_iota(jnp.int32, (H, W), 1) + x0
 
-        st = _zou_he_tile(st, rowid, laneid, ny, nx, w_inlet, w_outlet,
-                          incompressible)
+        st = zou_he_pressure_masked(st, rowid, laneid, ny, nx, w_inlet,
+                                    w_outlet, incompressible)
         mask = (mask_loc != 0) if has_obstacle else None
-        res = _moments_feq_collide(st, mask, w_omega, lattice, incompressible,
-                                   zero_vel_in_obstacle=incompressible)
+        res = moments_feq_collide(st, mask, w_omega, incompressible)
         return jnp.stack(res)
 
     f_spec = P(None, "y", "x")
@@ -123,239 +128,59 @@ def make_sharded_pipe_step(
     return step, f_sharding
 
 
-def make_sharded_temporal_step(
-    *,
-    mesh: Mesh,
-    ny: int,
-    nx: int,
-    omega: float,
-    inlet_rho: float,
-    outlet_rho: float,
-    equilibrium: str = "compressible",
-    lattice: Lattice = D2Q9,
-    dtype=jnp.float32,
-    k_steps: int | None = None,
-    interpret: bool = False,
-):
-    """Build a ``shard_map``-wrapped K-step Pallas group step.
+class _ShardedGSPMD:
+    """A constructed model whose XLA step runs under GSPMD on a mesh.
 
-    Each call advances the whole sharded grid ``k_steps`` LB steps: one
-    CH-row halo chunk is ``ppermute``d from each y-neighbor (ICI on a real
-    mesh), then each shard runs the K-deep temporal kernel locally — the
-    full single-chip fast path (``ops/fused_halo.py``) inside the
-    distributed program, instead of the slow XLA roll path.
-
-    2-D meshes (``mesh.shape["x"] > 1``) run the x-extended kernel: each
-    shard's body (``W = nx/mx`` lanes) is extended with one 128-lane strip
-    ppermuted from each x-neighbor — strips are cut from the *y-extended*
-    arrays, so diagonal corners arrive in two hops (same scheme as
-    :func:`lb2d_tpu.parallel.halo.extend_with_halo`). Returns
-    ``(stepK, sharding, K)``.
-    """
-    my, mx = mesh.shape["y"], mesh.shape["x"]
-    if ny % my:
-        raise ValueError(f"ny={ny} must divide mesh y={my}")
-    if nx % mx:
-        raise ValueError(f"nx={nx} must divide mesh x={mx}")
-    H = ny // my
-    W = nx // mx
-    BX = 128 if mx > 1 else 0
-    if BX and (W % 128 or W < 128):
-        raise ValueError(f"x-sharded kernel needs 128-aligned W, got {W}")
-    WE = W + 2 * BX
-    if k_steps is None:
-        k_steps = next((k for k in (8, 6, 4, 2, 1)
-                        if supports_temporal_halo(H, WE, k)), None)
-        if k_steps is None:
-            raise ValueError(f"no halo-temporal tiling for shard {H}x{WE}")
-    kernel = make_temporal_halo_step(
-        ny=ny, nx=nx, H=H, omega=omega, inlet_rho=inlet_rho,
-        outlet_rho=outlet_rho, equilibrium=equilibrium, lattice=lattice,
-        dtype=dtype, interpret=interpret, k_steps=k_steps,
-        x_ext=BX, W=W if BX else None)
-    CH = kernel.chunk
-
-    def _x_extend(arr):
-        """[q, rows, W] -> [q, rows, W + 256] with x-neighbor strips."""
-        left = arr[:, :, W - 128:]   # my last lanes -> next shard's left
-        right = arr[:, :, :128]      # my first lanes -> prev shard's right
-        left = _ring_shift(left, "x", +1)    # receive from prev x
-        right = _ring_shift(right, "x", -1)  # receive from next x
-        return jnp.concatenate([left, arr, right], axis=2)
-
-    def local_step(f_loc):
-        top = f_loc[:, H - CH:, :]   # my last rows -> next shard's top halo
-        bot = f_loc[:, :CH, :]       # my first rows -> prev shard's bottom
-        if my > 1:
-            top = _ring_shift(top, "y", +1)   # receive from prev y
-            bot = _ring_shift(bot, "y", -1)   # receive from next y
-        y0 = (jax.lax.axis_index("y") * H).astype(jnp.int32).reshape(1, 1)
-        if not BX:
-            return kernel(f_loc, top, bot, y0)
-        # x strips cut AFTER the y exchange so the halo chunks' corner
-        # lanes carry the diagonal neighbors' data
-        f_ext = _x_extend(f_loc)
-        top = _x_extend(top)
-        bot = _x_extend(bot)
-        x0 = (jax.lax.axis_index("x") * W).astype(jnp.int32).reshape(1, 1)
-        return kernel(f_ext, top, bot, y0, x0)
-
-    f_spec = P(None, "y", "x")
-    # check_vma=False: pallas_call outputs carry no varying-across-mesh
-    # annotation, which the jax>=0.9 shard_map checker rejects.
-    stepK = jax.shard_map(local_step, mesh=mesh, in_specs=(f_spec,),
-                          out_specs=f_spec, check_vma=False)
-    return stepK, NamedSharding(mesh, f_spec), k_steps
-
-
-class ShardedDiffusion:
-    """Domain decomposition for the advection-diffusion family — the
-    scaling path for the stochastic range-expansion workloads (the
-    reference scaled nothing; SURVEY §2.4/§5 name domain decomposition as
-    the framework's long-context answer).
-
-    Wraps a constructed :mod:`lb2d_tpu.models.diffusion` model (Diffusion,
-    AdvectionDiffusion, ReactionDiffusion, ReactionAdvectionDiffusion, or
-    the stochastic variant), shards ``f[9, ny, nx]`` over a y-decomposed
-    mesh, and runs the K-step temporal halo kernel per shard
-    (``physics="diffusion"`` / ``"noisy_fisher"``) with ``ppermute``
-    halo-chunk exchange. Because the physics is fully periodic, the
-    ppermute ring IS the true wrap: the sharded kernel needs **no seam
-    patch**, unlike the unsharded temporal kernel (DIVERGENCES.md #19) —
-    on the stochastic path the noise realization is a single consistent
-    on-core PRNG stream per (sweep, shard, chunk, stage).
-
-    Remainder iterations (n % K) run the model's XLA step under GSPMD on
-    the sharded state.
+    Every state leaf with two or more axes is sharded over its last two
+    (grid) axes, ``(..., "y", "x")``; smaller leaves (RNG keys) are
+    replicated. The model's own step runs unchanged inside one jitted
+    ``fori_loop``, so the sharded run computes exactly what the unsharded
+    one does. State is placed shard-wise from a host copy, which also works
+    when ``mesh`` spans several processes (``jax.distributed``): every
+    process built the same seeded ``base.state``.
     """
 
-    def __init__(self, base, mesh: Mesh | None = None,
-                 k_steps: int | None = None):
+    def __init__(self, base, mesh: Mesh | None = None):
         self.base = base
         self.mesh = mesh if mesh is not None else make_mesh()
         my = dict(self.mesh.shape)["y"]
         mx = dict(self.mesh.shape).get("x", 1)
-        ny, nx = base.ny, base.nx
-        if ny % my:
-            raise ValueError(f"ny={ny} must divide mesh y={my}")
-        if nx % mx:
-            raise ValueError(f"nx={nx} must divide mesh x={mx}")
-        H = ny // my
-        W = nx // mx
-        BX = 128 if mx > 1 else 0
-        if BX and (W % 128 or W < 128):
-            raise ValueError(f"x-sharded kernel needs 128-aligned W, got {W}")
-        WE = W + 2 * BX
-        self.nx, self.ny = nx, ny
+        self.nx, self.ny = base.nx, base.ny
+        if self.ny % my or self.nx % mx:
+            raise ValueError(
+                f"grid {self.ny}x{self.nx} must divide mesh {my}x{mx}")
         self.num_cells = base.num_cells
-        self.noisy = hasattr(base, "Dg")
-        interpret = jax.default_backend() != "tpu"
+        xs = "x" if "x" in self.mesh.axis_names else None
 
-        from ..ops.fused_halo import (make_temporal_halo_step,
-                                      supports_temporal_halo)
-        if k_steps is None:
-            k_steps = next((k for k in (8, 6, 4, 2, 1)
-                            if supports_temporal_halo(H, WE, k)), None)
-            if k_steps is None:
-                raise ValueError(
-                    f"no halo-temporal tiling for shard {H}x{WE}")
-        self.steps_per_call = k_steps
-        u_lb = float(np.asarray(base.u).ravel()[0])
-        v_lb = float(np.asarray(base.v).ravel()[0])
-        kernel = make_temporal_halo_step(
-            ny=ny, nx=nx, H=H, omega=float(base.omega),
-            physics="noisy_fisher" if self.noisy else "diffusion",
-            u_lb=u_lb, v_lb=v_lb, lb_G=float(base._lb_G()),
-            lb_Dg=float(getattr(base, "Dg", 0.0)),
-            dtype=base.dtype, interpret=interpret, k_steps=k_steps,
-            x_ext=BX, W=W if BX else None)
-        CH = kernel.chunk
+        def sharding(leaf):
+            if leaf.ndim < 2:
+                return NamedSharding(self.mesh, P())
+            return NamedSharding(
+                self.mesh, P(*([None] * (leaf.ndim - 2)), "y", xs))
 
-        f_spec = P(None, "y", "x" if mx > 1 else None)
-        self._sharding = NamedSharding(self.mesh, f_spec)
-
-        # Shard-wise state placement that also works when ``mesh`` spans
-        # multiple PROCESSES (jax.distributed): every process constructed
-        # the same seeded ``base.state`` locally, so each can serve its
-        # own addressable shards from a host copy — ``device_put`` to a
-        # non-addressable sharding would reject the committed array.
-        def _put(arr):
-            host = np.asarray(jax.device_get(arr))
+        def put(leaf):
+            host = np.asarray(jax.device_get(leaf))
             return jax.make_array_from_callback(
-                host.shape, self._sharding, lambda idx: host[idx])
+                host.shape, sharding(leaf), lambda idx: host[idx])
 
-        if self.noisy:
-            f0, key = base.state
-            self.state = (_put(f0), key)
-        else:
-            self.state = _put(base.state)
+        shardings = jax.tree_util.tree_map(sharding, base.state)
+        self.state = jax.tree_util.tree_map(put, base.state)
+        step = base.make_step()
 
-        def _x_extend(arr):
-            left = arr[:, :, W - 128:]
-            right = arr[:, :, :128]
-            left = _ring_shift(left, "x", +1)
-            right = _ring_shift(right, "x", -1)
-            return jnp.concatenate([left, arr, right], axis=2)
+        def constrained(state):
+            return jax.lax.with_sharding_constraint(step(state), shardings)
 
-        def local_step(f_loc, *seed):
-            top = f_loc[:, H - CH:, :]
-            bot = f_loc[:, :CH, :]
-            if my > 1:
-                top = _ring_shift(top, "y", +1)
-                bot = _ring_shift(bot, "y", -1)
-            y0 = (jax.lax.axis_index("y") * H).astype(jnp.int32)
-            args = ()
-            if BX:
-                f_loc = _x_extend(f_loc)
-                top = _x_extend(top)
-                bot = _x_extend(bot)
-                x0 = (jax.lax.axis_index("x") * W).astype(jnp.int32)
-                args = (x0.reshape(1, 1),)
-            if self.noisy:
-                # decorrelate shards: fold the shard index into the sweep
-                # seed (the kernel further mixes in chunk and stage)
-                sidx = jax.lax.axis_index("y").astype(jnp.int32)
-                if mx > 1:
-                    sidx = sidx * mx + jax.lax.axis_index("x").astype(
-                        jnp.int32)
-                s = seed[0] ^ (sidx * np.int32(-1640531535))
-                return kernel(f_loc, top, bot, y0.reshape(1, 1), *args,
-                              s.reshape(1, 1))
-            return kernel(f_loc, top, bot, y0.reshape(1, 1), *args)
-
-        if self.noisy:
-            sm = jax.shard_map(local_step, mesh=self.mesh,
-                               in_specs=(f_spec, P()), out_specs=f_spec,
-                               check_vma=False)
-
-            def stepK(state):
-                f, key = state
-                key, ks = jax.random.split(key)
-                seed = jax.lax.bitcast_convert_type(
-                    jax.random.bits(ks, (), jnp.uint32), jnp.int32)
-                return (sm(f, seed), key)
-        else:
-            sm = jax.shard_map(local_step, mesh=self.mesh,
-                               in_specs=(f_spec,), out_specs=f_spec,
-                               check_vma=False)
-            stepK = sm
-
-        self._run_main = jax.jit(
-            lambda s, n: jax.lax.fori_loop(0, n, lambda i, t: stepK(t), s),
-            donate_argnums=0)
-        xla_step = (base._make_xla_stochastic_step() if self.noisy
-                    else base._make_xla_step())
-        self._run_rem = jax.jit(
-            lambda s, n: jax.lax.fori_loop(
-                0, n, lambda i, t: xla_step(t), s),
+        self._run = jax.jit(
+            lambda s, n: jax.lax.fori_loop(0, n, lambda i, t: constrained(t),
+                                           s),
             donate_argnums=0)
 
     def run(self, num_iterations: int):
-        n_calls, rem = divmod(int(num_iterations), self.steps_per_call)
-        if n_calls:
-            self.state = self._run_main(self.state, jnp.int32(n_calls))
-        if rem:
-            self.state = self._run_rem(self.state, jnp.int32(rem))
+        self.state = self._run(self.state, np.int32(num_iterations))
+        return self
+
+    def block_until_ready(self):
+        jax.block_until_ready(self.state)
         return self
 
     def get_fields(self):
@@ -363,512 +188,71 @@ class ShardedDiffusion:
         return self.base.get_fields()
 
 
-class ShardedMultifield:
+class ShardedDiffusion(_ShardedGSPMD):
+    """Domain decomposition for the advection-diffusion family (Diffusion,
+    AdvectionDiffusion, ReactionDiffusion, ReactionAdvectionDiffusion and
+    the stochastic variant): ``f[9, ny, nx]`` sharded over the mesh, the
+    model's XLA step under GSPMD. The physics is fully periodic, so the
+    rolls' collective-permute ring IS the periodic wrap."""
+
+
+class ShardedMultifield(_ShardedGSPMD):
     """Domain decomposition for the multifield families
     (:class:`~lb2d_tpu.models.multifield.FisherExpansion` /
-    :class:`~lb2d_tpu.models.multifield.Expansion`): shards
-    ``f[q, F, ny, nx]`` over a y-decomposed OR 2-D mesh and runs the
-    K-step multifield halo kernel per shard (2-D meshes exchange
-    x-neighbor 128-lane strips like the flow/mc/coupled kernels; the
-    FisherExpansion x-walls get a lane-band splice mirroring the row-band
-    one; stochastic strips carry the receiving shard's noise realization —
-    the same documented seam-realization divergence as the y case,
-    DIVERGENCES #19).
-
-    * ``Expansion`` (periodic, stochastic): the ppermute ring is the true
-      wrap — no seam patch; on-core PRNG seeded per (sweep, shard, chunk,
-      stage).
-    * ``FisherExpansion`` (no-flux walls): interior shard boundaries get
-      exact halos; the two *global* wall rows see torus-wrapped garbage the
-      wall BCs mostly-but-not-fully rewrite (same analysis as the unsharded
-      kernel), so rows within K of either wall are recomputed with K plain
-      XLA steps on a 6K-row band assembled under GSPMD.
-    """
-
-    def __init__(self, base, mesh: Mesh | None = None,
-                 k_steps: int | None = None):
-        from ..models.multifield import Expansion, FisherExpansion
-        from ..ops.fused_halo import (make_temporal_halo_step,
-                                      supports_temporal_halo)
-
-        self.base = base
-        self.mesh = mesh if mesh is not None else make_mesh()
-        my = dict(self.mesh.shape)["y"]
-        mx = dict(self.mesh.shape).get("x", 1)
-        ny, nx = base.ny, base.nx
-        if ny % my or nx % mx:
-            raise ValueError(f"grid {ny}x{nx} must divide mesh {my}x{mx}")
-        H = ny // my
-        W = nx // mx
-        # 2-D meshes: x-neighbor 128-lane strips, same scheme as the
-        # flow/mc/coupled kernels (strips cut AFTER the y exchange so
-        # diagonal corners arrive in two hops)
-        BX = 128 if mx > 1 else 0
-        if BX and (W % 128 or W < 128):
-            raise ValueError(f"x-sharded kernel needs 128-aligned W, got {W}")
-        WE = W + 2 * BX
-        self.nx, self.ny = nx, ny
-        self.num_cells = base.num_cells
-        F = base.num_fields
-        q = base.lattice.q
-        self.noisy = isinstance(base, Expansion)
-        fisher = isinstance(base, FisherExpansion)
-        assert self.noisy or fisher
-        interpret = jax.default_backend() != "tpu"
-
-        if k_steps is None:
-            k_steps = next(
-                (k for k in (8, 6, 4, 2, 1)
-                 if pick_halo_chunk_mf(H, WE, k, F)), None)
-            if k_steps is None:
-                raise ValueError(
-                    f"no multifield halo tiling for shard {H}x{WE} F={F}")
-        K = self.steps_per_call = k_steps
-        if self.noisy:
-            # Expansion: F = populations + nutrient; per-field omegas are
-            # the population list + the nutrient's (stochastic_nutrients.py
-            # :204-250)
-            omegas = (list(np.asarray(base.omega).ravel())
-                      + [float(base.omega_nutrient)])
-            mf_kw = dict(physics="multifield_expansion", omegas=omegas,
-                         lb_Gs=base.lb_G, lb_Dgs=base.lb_Dg,
-                         cutoff=base.zero_cutoff)
-        else:
-            mf_kw = dict(physics="multifield_fisher", omegas=base.omega,
-                         lb_Gs=base.lb_G)
-        xkw = dict(x_ext=BX, W=W) if BX else {}
-        kernel = make_temporal_halo_step(
-            ny=ny, nx=nx, H=H, omega=1.0,  # scalar omega unused on mf paths
-            num_fields=F, u_lb=float(base.lb_vx), v_lb=float(base.lb_vy),
-            dtype=base.dtype, interpret=interpret, k_steps=K,
-            **mf_kw, **xkw)
-        CH = kernel.chunk
-        Pp = q * F
-
-        f_spec = P(None, "y", "x") if BX else P(None, "y", None)
-        self._sharding = NamedSharding(self.mesh, f_spec)
-        if self.noisy:
-            f0, key = base.state
-            f0 = jax.device_put(f0.reshape(Pp, ny, nx), self._sharding)
-            self.state = (f0, key)
-        else:
-            self.state = jax.device_put(
-                base.state.reshape(Pp, ny, nx), self._sharding)
-
-        def x_extend(arr):
-            """[P, rows, W] -> [P, rows, W + 256] with x-neighbor strips
-            (cut AFTER the y exchange -> diagonal corners in two hops)."""
-            left = arr[:, :, W - 128:]
-            right = arr[:, :, :128]
-            left = _ring_shift(left, "x", +1)
-            right = _ring_shift(right, "x", -1)
-            return jnp.concatenate([left, arr, right], axis=2)
-
-        def local_step(f_loc, *seed):
-            top = f_loc[:, H - CH:, :]
-            bot = f_loc[:, :CH, :]
-            if my > 1:
-                top = _ring_shift(top, "y", +1)
-                bot = _ring_shift(bot, "y", -1)
-            y0 = (jax.lax.axis_index("y") * H).astype(jnp.int32)
-            args = [f_loc, top, bot, y0.reshape(1, 1)]
-            if BX:
-                x0 = (jax.lax.axis_index("x") * W).astype(jnp.int32)
-                args = [x_extend(f_loc), x_extend(top), x_extend(bot),
-                        y0.reshape(1, 1), x0.reshape(1, 1)]
-            if self.noisy:
-                s = seed[0] ^ (jax.lax.axis_index("y").astype(jnp.int32)
-                               * np.int32(-1640531535))
-                if BX:
-                    s = s ^ (jax.lax.axis_index("x").astype(jnp.int32)
-                             * np.int32(40503))
-                args.append(s.reshape(1, 1))
-            return kernel(*args)
-
-        xla_step = base._make_xla_step() if fisher else None
-        if self.noisy:
-            sm = jax.shard_map(local_step, mesh=self.mesh,
-                               in_specs=(f_spec, P()), out_specs=f_spec,
-                               check_vma=False)
-
-            def stepK(state):
-                f, key = state
-                key, ks = jax.random.split(key)
-                seed = jax.lax.bitcast_convert_type(
-                    jax.random.bits(ks, (), jnp.uint32), jnp.int32)
-                return (sm(f, seed), key)
-        else:
-            B = 3 * K
-            rep3 = NamedSharding(self.mesh, P(None, None, None))
-            rep4 = NamedSharding(self.mesh, P(None, None, None, None))
-
-            def local_patched(f_loc, band, *xband):
-                """Kernel sweep + in-shard wall splice. ``band`` is the
-                replicated, already-K-stepped 2B-row wall band; each shard
-                overwrites the global rows [0, K) / [ny-K, ny) it owns
-                with local masked writes (GSPMD scatters onto the y-sharded
-                array miscompile, so the splice stays inside shard_map).
-                On 2-D meshes ``xband`` is the 2B-LANE x-wall band (full
-                height): the torus-wrapped x strips at the global x edges
-                contaminate lanes within K of the x walls the same way the
-                y wrap contaminates rows — both bands are exact in their
-                splice regions (each is full-size along the other axis, so
-                they agree on the corners)."""
-                out_loc = local_step(f_loc)
-                H_loc = out_loc.shape[1]
-                y0 = jax.lax.axis_index("y") * H_loc
-                rowid = (jax.lax.iota(jnp.int32, H_loc) + y0)[None, :, None]
-                W_loc = out_loc.shape[2]
-                if BX:
-                    xb = xband[0]
-                    x0 = jax.lax.axis_index("x") * W_loc
-                    laneid = (jax.lax.iota(jnp.int32, W_loc)
-                              + x0)[None, None, :]
-                    yslice = jax.lax.dynamic_slice_in_dim(xb, y0, H_loc, 1)
-                    lo_x = jnp.pad(yslice[:, :, :K],
-                                   ((0, 0), (0, 0), (0, W_loc - K)))
-                    hi_x = jnp.pad(yslice[:, :, 2 * B - K:],
-                                   ((0, 0), (0, 0), (W_loc - K, 0)))
-                    out_loc = jnp.where(laneid < K, lo_x, out_loc)
-                    out_loc = jnp.where(laneid >= nx - K, hi_x, out_loc)
-                lo = band[:, :K, :]
-                hi = band[:, 2 * B - K:, :]
-                if BX:
-                    lo = jax.lax.dynamic_slice_in_dim(lo, x0, W_loc, 2)
-                    hi = jax.lax.dynamic_slice_in_dim(hi, x0, W_loc, 2)
-                lo = jnp.pad(lo, ((0, 0), (0, H_loc - K), (0, 0)))
-                hi = jnp.pad(hi, ((0, 0), (H_loc - K, 0), (0, 0)))
-                out_loc = jnp.where(rowid < K, lo, out_loc)
-                out_loc = jnp.where(rowid >= ny - K, hi, out_loc)
-                return out_loc
-
-            band_specs = (f_spec, P(None, None, None))
-            if BX:
-                band_specs += (P(None, None, None),)
-            smp = jax.shard_map(local_patched, mesh=self.mesh,
-                                in_specs=band_specs,
-                                out_specs=f_spec, check_vma=False)
-
-            def stepK(f):
-                # wall seam patch (cf. FisherExpansion._make_temporal_step).
-                # The band is pinned REPLICATED: GSPMD miscompiles the
-                # rolled/edge-updated step on the tiny 2B-row concat when it
-                # partitions it over y (verified wrong vs eager), and at 6K
-                # rows replication is free.
-                band = jnp.concatenate(
-                    [f[:, :B, :], f[:, ny - B:, :]],
-                    axis=1).reshape(q, F, 2 * B, nx)
-                band = jax.lax.with_sharding_constraint(band, rep4)
-                for _ in range(K):
-                    band = jax.lax.with_sharding_constraint(
-                        xla_step(band), rep4)
-                band = jax.lax.with_sharding_constraint(
-                    band.reshape(Pp, 2 * B, nx), rep3)
-                if not BX:
-                    return smp(f, band)
-                # x-wall band: full height, first/last B lanes; same
-                # replication argument (2B lanes x ny rows is tiny)
-                xband = jnp.concatenate(
-                    [f[:, :, :B], f[:, :, nx - B:]],
-                    axis=2).reshape(q, F, ny, 2 * B)
-                xband = jax.lax.with_sharding_constraint(xband, rep4)
-                for _ in range(K):
-                    xband = jax.lax.with_sharding_constraint(
-                        xla_step(xband), rep4)
-                xband = jax.lax.with_sharding_constraint(
-                    xband.reshape(Pp, ny, 2 * B), rep3)
-                return smp(f, band, xband)
-
-        self._run_main = jax.jit(
-            lambda s, n: jax.lax.fori_loop(0, n, lambda i, t: stepK(t), s),
-            donate_argnums=0)
-
-        if self.noisy:
-            xstep = base._make_xla_stochastic_step()
-
-            def rem_step(state):
-                f, key = state
-                f4 = f.reshape(q, F, ny, nx)
-                f4, key = xstep((f4, key))
-                return (f4.reshape(Pp, ny, nx), key)
-        else:
-            def rem_step(f):
-                return xla_step(
-                    f.reshape(q, F, ny, nx)).reshape(Pp, ny, nx)
-
-        self._run_rem = jax.jit(
-            lambda s, n: jax.lax.fori_loop(
-                0, n, lambda i, t: rem_step(t), s),
-            donate_argnums=0)
-        self._q, self._F = q, F
-
-    def run(self, num_iterations: int):
-        n_calls, rem = divmod(int(num_iterations), self.steps_per_call)
-        if n_calls:
-            self.state = self._run_main(self.state, jnp.int32(n_calls))
-        if rem:
-            self.state = self._run_rem(self.state, jnp.int32(rem))
-        return self
-
-    def _state4(self):
-        q, F = self._q, self._F
-        if self.noisy:
-            f, key = self.state
-            return (f.reshape(q, F, self.ny, self.nx), key)
-        return self.state.reshape(q, F, self.ny, self.nx)
-
-    def get_fields(self):
-        self.base.state = self._state4()
-        return self.base.get_fields()
+    :class:`~lb2d_tpu.models.multifield.Expansion`): ``f[q, F, ny, nx]``
+    sharded over its grid axes, the model's XLA step under GSPMD (the
+    no-flux walls are masked selects, safe on sharded arrays)."""
 
 
-def pick_halo_chunk_mf(H, nx, k, F):
-    from ..ops.fused_halo import pick_halo_chunk
-    return pick_halo_chunk(H, nx, k, num_fields=F)
-
-
-class ShardedCoupled:
+class ShardedCoupled(_ShardedGSPMD):
     """Domain decomposition for the coupled two-field / spectral-velocity
     families: :class:`~lb2d_tpu.models.rocket_yeast.RocketYeast` (+
     ``ForcesOnly``), :class:`~lb2d_tpu.models.surfactant.
     SurfactantNutrientWave` (+ ``Clumpy``), and
-    :class:`~lb2d_tpu.models.waves.ScreenedFisherWave`.
+    :class:`~lb2d_tpu.models.waves.ScreenedFisherWave`, under GSPMD. On a
+    mesh of more than one device the screened-Poisson velocity is solved
+    with the partitionable matmul DFT (the FFT custom call does not
+    partition a sharded operand)."""
 
-    Rocket yeast is fully local (gradient velocity + one-belt forces), so
-    its K-deep kernel runs per shard with ppermute halo chunks, exactly
-    like the multicomponent engine. The spectral families compute their
-    screened-Poisson velocity globally under GSPMD (rolled post-stream
-    density + matmul-DFT) and feed it to the per-shard kernel as external
-    planes — per step (exact, K=1), or once per K-step sweep when the
-    base model carries ``stale_velocity > 1`` (ext halo chunks ppermuted
-    from the y-neighbors, like the f halos). All periodic — no seam
-    patches."""
-
-    def __init__(self, base, mesh: Mesh | None = None,
-                 k_steps: int | None = None):
+    def __init__(self, base, mesh: Mesh | None = None):
         from ..models.rocket_yeast import RocketYeast
         from ..models.surfactant import SurfactantNutrientWave
         from ..models.waves import ScreenedFisherWave
-        from ..ops.fused_coupled import (make_rocket_yeast_step,
-                                         make_screened_fisher_step,
-                                         make_surfactant_step)
 
-        self.base = base
-        self.mesh = mesh if mesh is not None else make_mesh()
-        my = dict(self.mesh.shape)["y"]
-        mx = dict(self.mesh.shape).get("x", 1)
-        ny, nx = base.ny, base.nx
-        if ny % my or nx % mx:
-            raise ValueError(f"grid {ny}x{nx} must divide mesh {my}x{mx}")
-        H = ny // my
-        W = nx // mx
-        # 2-D meshes: x-neighbor 128-lane strips, the flow/mc kernels'
-        # scheme (cut from the y-extended arrays -> corners in two hops)
-        BX = 128 if mx > 1 else 0
-        if BX and (W % 128 or W < 128):
-            raise ValueError(f"x-sharded kernel needs 128-aligned W, got {W}")
-        WE = W + 2 * BX
-        self.nx, self.ny = nx, ny
-        self.num_cells = base.num_cells
-        q = base.lattice.q
-        interpret = jax.default_backend() != "tpu"
-        lat = base.lattice
-        xkw = dict(x_ext=BX, body_w=W) if BX else {}
-
-        def _demote(build, Ks):
-            """Mirror the unsharded models' K-demotion (ADVICE r3 #1):
-            when the per-shard tiling is infeasible at the requested sweep
-            depth (small H per shard), retry at decreasing K instead of
-            letting the kernel factory raise."""
-            while True:
-                try:
-                    return build(Ks)
-                except ValueError:
-                    if Ks is None or Ks <= 1:
-                        raise
-                    Ks -= 1
-
-        if isinstance(base, RocketYeast):
-            kw = {}
-            if base._forces_only:
-                kw = dict(forces_only=True, c_o=base.c_o, alpha=base.alpha)
-            kernel = _demote(lambda k: make_rocket_yeast_step(
-                H=H, nx=WE, omega=float(base.omega),
-                omega_c=float(base.omega_c), lb_G=float(base.lb_G),
-                lb_Gc=float(base.lb_Gc), epsilon=float(base.epsilon),
-                rho_o=float(base.rho_o), G_chen=float(base.G_chen),
-                dtype=base.dtype, interpret=interpret, k_steps=k,
-                **kw, **xkw), k_steps)
-            C, ext_src = 2, None
-        elif isinstance(base, SurfactantNutrientWave):
-            kw = {}
-            if base._clumpy:
-                kw = dict(clumpy=True, rho_o=float(base.rho_o),
-                          G_chen=float(base.G_chen))
-            # sweep-stale carries over to the sharded composition: the
-            # velocity planes are held for a K-step sweep, and the halo
-            # chunks' ext rows come from the ppermuted neighbor chunks
-            # (ext_halos — the shard-local wrap is only the true field on
-            # an unsharded shard)
-            Ks = int(k_steps or getattr(base, "stale_velocity", 1))
-            kernel = _demote(lambda k: make_surfactant_step(
-                H=H, nx=WE, omega=float(base.omega),
-                omega_n=float(base.omega_n), lb_G=float(base.lb_G),
-                dtype=base.dtype, interpret=interpret, k_steps=k,
-                ext_halos=k > 1, **kw, **xkw), Ks)
-            C, ext_src = 2, base.POP
-        elif isinstance(base, ScreenedFisherWave):
-            Ks = int(k_steps or getattr(base, "stale_velocity", 1))
-            kernel = _demote(lambda k: make_screened_fisher_step(
-                H=H, nx=WE, omega=float(base.omega), lb_G=float(base.lb_G),
-                dtype=base.dtype, interpret=interpret, k_steps=k,
-                ext_halos=k > 1, **xkw), Ks)
-            C, ext_src = 1, 0
-        else:
+        if not isinstance(base, (RocketYeast, SurfactantNutrientWave,
+                                 ScreenedFisherWave)):
             raise TypeError(f"unsupported model {type(base).__name__}")
-        CH = kernel.chunk
-        K = self.steps_per_call = kernel.k_steps
-        Pp = q * C
-        has_ext = ext_src is not None
-        velocity = base._velocity
-        if self.mesh.size > 1 and hasattr(velocity, "allow_pallas"):
-            # the Pallas DFT solve is an opaque custom call GSPMD cannot
-            # partition — force the partitionable matmul-DFT path when the
-            # velocity is evaluated on mesh-sharded arrays (also over the
-            # CPU fft path, which RET_CHECKs on 2-D-sharded layouts)
-            velocity.allow_pallas = False
-            if velocity.method != "matmul":
-                if getattr(velocity, "_explicit_method", False):
-                    import warnings
+        mesh = mesh if mesh is not None else make_mesh()
+        velocity = getattr(base, "_velocity", None)
+        if mesh.size > 1 and getattr(velocity, "method", "matmul") != "matmul":
+            if velocity._explicit_method:
+                import warnings
 
-                    warnings.warn(
-                        f"ShardedCoupled: overriding explicit method="
-                        f"'{velocity.method}' with 'matmul' — the "
-                        "requested path cannot run on a >1-device mesh "
-                        "(fft RET_CHECKs on sharded layouts; Pallas is an "
-                        "unpartitionable custom call)", stacklevel=2)
-                velocity.method = "matmul"
-
-        f_spec = P(None, "y", "x") if BX else P(None, "y", None)
-        self._sharding = NamedSharding(self.mesh, f_spec)
-        self.state = jax.device_put(
-            base.state.reshape(Pp, ny, nx), self._sharding)
-
-        ext_halos = has_ext and kernel.k_steps > 1
-
-        def x_extend(arr):
-            left = arr[:, :, W - 128:]
-            right = arr[:, :, :128]
-            left = _ring_shift(left, "x", +1)
-            right = _ring_shift(right, "x", -1)
-            return jnp.concatenate([left, arr, right], axis=2)
-
-        def local_step(f_loc, *ext):
-            top = f_loc[:, H - CH:, :]
-            bot = f_loc[:, :CH, :]
-            e = ext[0] if has_ext else None
-            etop = ebot = None
-            if ext_halos:
-                etop = e[:, H - CH:, :]
-                ebot = e[:, :CH, :]
-            if my > 1:
-                top = _ring_shift(top, "y", +1)
-                bot = _ring_shift(bot, "y", -1)
-                if ext_halos:
-                    etop = _ring_shift(etop, "y", +1)
-                    ebot = _ring_shift(ebot, "y", -1)
-            if BX:
-                # strips cut AFTER the y exchange (corners in two hops)
-                f_loc = x_extend(f_loc)
-                top = x_extend(top)
-                bot = x_extend(bot)
-                if has_ext:
-                    e = x_extend(e)
-                if ext_halos:
-                    etop = x_extend(etop)
-                    ebot = x_extend(ebot)
-            if ext_halos:
-                return kernel(f_loc, top, bot, e, etop, ebot)
-            if has_ext:
-                return kernel(f_loc, top, bot, e)
-            return kernel(f_loc, top, bot)
-
-        specs = (f_spec, f_spec) if has_ext else (f_spec,)
-        sm = jax.shard_map(local_step, mesh=self.mesh, in_specs=specs,
-                           out_specs=f_spec, check_vma=False)
-
-        if has_ext:
-            def stepK(flat):
-                # post-stream density of the source field via periodic
-                # rolls under GSPMD, then the global spectral solve
-                f4 = flat.reshape(q, C, ny, nx)
-                r = None
-                for j in range(q):
-                    p = f4[j, ext_src]
-                    if lat.cy[j]:
-                        p = jnp.roll(p, lat.cy[j], axis=0)
-                    if lat.cx[j]:
-                        p = jnp.roll(p, lat.cx[j], axis=1)
-                    r = p if r is None else r + p
-                u, v = velocity(r)
-                ext = jax.lax.with_sharding_constraint(
-                    jnp.stack([u, v]).astype(base.dtype), self._sharding)
-                return sm(flat, ext)
-        else:
-            stepK = sm
-
-        self._run_main = jax.jit(
-            lambda s, n: jax.lax.fori_loop(0, n, lambda i, t: stepK(t), s),
-            donate_argnums=0)
-        xstep = base._make_xla_step()
-
-        def rem_step(flat):
-            if C == 1:
-                return xstep(flat)
-            return xstep(flat.reshape(q, C, ny, nx)).reshape(Pp, ny, nx)
-
-        self._run_rem = jax.jit(
-            lambda s, n: jax.lax.fori_loop(
-                0, n, lambda i, t: rem_step(t), s),
-            donate_argnums=0)
-        self._q, self._C = q, C
-
-    def run(self, num_iterations: int):
-        n_calls, rem = divmod(int(num_iterations), self.steps_per_call)
-        if n_calls:
-            self.state = self._run_main(self.state, jnp.int32(n_calls))
-        if rem:
-            self.state = self._run_rem(self.state, jnp.int32(rem))
-        return self
-
-    def _state_model(self):
-        if self._C == 1:
-            return self.state
-        return self.state.reshape(self._q, self._C, self.ny, self.nx)
-
-    def get_fields(self):
-        self.base.state = self._state_model()
-        return self.base.get_fields()
+                warnings.warn(
+                    f"ShardedCoupled: overriding explicit method="
+                    f"'{velocity.method}' with 'matmul' — the FFT cannot "
+                    "run on arrays sharded over a >1-device mesh",
+                    stacklevel=2)
+            velocity.method = "matmul"
+        super().__init__(base, mesh)
 
 
 class ShardedPipeFlow:
-    """Pipe flow sharded over a TPU mesh — API mirrors
+    """Pipe flow sharded over a device mesh — API mirrors
     :class:`lb2d_tpu.models.pipe_flow.PipeFlow` (same physics, nondim, and
     getters) with the grid domain-decomposed over ``mesh``.
 
-    ``backend="auto"`` runs the K-step temporal Pallas kernel inside
-    ``shard_map`` (y-decomposed meshes, no obstacle), falling back to the
-    XLA halo-exchange step otherwise. State is initialized shard-wise (the
-    full ``f`` never stages on a single device) and ``get_fields`` computes
-    moments on the sharded state.
+    Each step runs the XLA halo-exchange step (:func:`make_sharded_pipe_step`)
+    inside ``shard_map``. State is initialized shard-wise (the full ``f``
+    never stages on a single device) and ``get_fields`` computes moments on
+    the sharded state.
     """
 
     def __init__(self, mesh: Mesh | None = None, backend: str = "auto",
-                 k_steps: int | None = None, **kwargs):
+                 **kwargs):
         from ..models.pipe_flow import PipeFlow
 
         self.mesh = mesh if mesh is not None else make_mesh()
-        my, mx = self.mesh.shape["y"], self.mesh.shape["x"]
         # Config-only base model: units, grid dims, omega, getters.
         base = PipeFlow(backend="xla", init_state=False, **kwargs)
         self.base = base
@@ -877,21 +261,8 @@ class ShardedPipeFlow:
         self.omega = base.omega
         self.inlet_rho, self.outlet_rho = base.inlet_rho, base.outlet_rho
         self.num_cells = base.num_cells
-        self.steps_per_call = 1
+        self.backend = resolve_backend(backend)
 
-        interpret = jax.default_backend() != "tpu"
-        WE = self.nx // mx + (256 if mx > 1 else 0)
-        can_temporal = (
-            base.obstacle_mask is None
-            and self.ny % my == 0 and self.nx % mx == 0
-            and (mx == 1 or (self.nx // mx) % 128 == 0)
-            and supports_temporal_halo(self.ny // my, WE, k_steps or 1))
-        if backend == "auto":
-            backend = "temporal" if can_temporal else "xla"
-        self.backend = backend
-
-        # XLA halo-exchange step: the general path (2-D meshes, obstacles)
-        # and the remainder step for iteration counts % K.
         xla_step, sharding = make_sharded_pipe_step(
             mesh=self.mesh, ny=self.ny, nx=self.nx, omega=self.omega,
             inlet_rho=self.inlet_rho, outlet_rho=self.outlet_rho,
@@ -918,54 +289,12 @@ class ShardedPipeFlow:
             self.obstacle_mask = None
             step1 = xla_step
 
-        if backend == "temporal":
-            # 1x1 mesh: bypass shard_map entirely and run the
-            # unsharded temporal kernel — the wrapper costs ~10% at
-            # 8192^2 (13,475 unsharded vs 12,163 wrapped, RESULTS
-            # round 4), exactly as SimulationRunner.shard_over
-            # already does for the mc engine. The single-device
-            # NamedSharding state is bit-compatible with the plain
-            # kernel; halo machinery is dead weight at one shard.
-            # Only taken when the UNSHARDED kernel supports the grid:
-            # supports_temporal is stricter than the halo predicate
-            # that gated can_temporal (advisor r4, high), and an
-            # explicit k_steps is clamped to the deepest ring that
-            # fits the unsharded VMEM budget (advisor r4, medium).
-            bypass_k = None
-            if self.mesh.size == 1:
-                cand = [k for k in (8, 6, 4, 2)
-                        if k_steps is None or k <= k_steps]
-                bypass_k = next((k for k in cand
-                                 if supports_temporal(self.ny, self.nx, k)),
-                                None)
-            if bypass_k is not None:
-                main_step = base._make_temporal_step(k_steps=bypass_k)
-                self.steps_per_call = base.steps_per_call
-            else:
-                stepK, _, K = make_sharded_temporal_step(
-                    mesh=self.mesh, ny=self.ny, nx=self.nx,
-                    omega=self.omega, inlet_rho=self.inlet_rho,
-                    outlet_rho=self.outlet_rho,
-                    equilibrium=base.equilibrium, dtype=base.dtype,
-                    k_steps=k_steps, interpret=interpret)
-                self.steps_per_call = K
-                main_step = stepK
-        else:
-            main_step = step1
-
-        self._run_main = jax.jit(
-            lambda f, n: jax.lax.fori_loop(0, n, lambda i, s: main_step(s), f),
-            donate_argnums=0)
-        self._run_rem = jax.jit(
+        self._run = jax.jit(
             lambda f, n: jax.lax.fori_loop(0, n, lambda i, s: step1(s), f),
             donate_argnums=0)
 
     def run(self, num_iterations: int):
-        n_calls, rem = divmod(int(num_iterations), self.steps_per_call)
-        if n_calls:
-            self.state = self._run_main(self.state, jnp.int32(n_calls))
-        if rem:
-            self.state = self._run_rem(self.state, jnp.int32(rem))
+        self.state = self._run(self.state, np.int32(num_iterations))
         return self
 
     def block_until_ready(self):

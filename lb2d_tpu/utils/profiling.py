@@ -1,4 +1,4 @@
-"""Profiling helpers — the TPU counterpart of the reference's
+"""Profiling helpers — the counterpart of the reference's
 ``PROFILING_ENABLE`` command queues and ``%%prun`` notebook cells
 (SURVEY.md §5): ``jax.profiler`` traces plus simple step timing.
 """
@@ -9,7 +9,6 @@ import contextlib
 import time
 
 import jax
-import jax.numpy as jnp
 
 __all__ = ["trace", "time_steps"]
 
@@ -28,15 +27,11 @@ def trace(logdir: str = "/tmp/lb2d_trace"):
 def time_steps(model, num_steps: int = 100, repeats: int = 3):
     """Wall-clock a model's ``run`` and return per-step milliseconds and
     MLUPS for each repeat (first call warms the compile)."""
-    model.run(1)
-    leaf = jax.tree_util.tree_leaves(model.state)[0]
-    float(jnp.sum(jnp.ravel(leaf)[:8]))
+    jax.block_until_ready(model.run(1).state)
     out = []
     for _ in range(repeats):
         t0 = time.perf_counter()
-        model.run(num_steps)
-        leaf = jax.tree_util.tree_leaves(model.state)[0]
-        float(jnp.sum(jnp.ravel(leaf)[:8]))
+        jax.block_until_ready(model.run(num_steps).state)
         dt = time.perf_counter() - t0
         out.append({
             "ms_per_step": dt * 1000 / num_steps,

@@ -1,4 +1,4 @@
-"""Device-side field rendering (the vispy visualizer, TPU-style).
+"""Device-side field rendering (the vispy visualizer, on the device).
 
 The reference's ``Field_Visualizer_Canvas`` round-trips every frame through
 the host: ``sim.run(k)`` -> ``field.get()`` (GPU->CPU) -> texture re-upload

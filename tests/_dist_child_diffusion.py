@@ -1,14 +1,11 @@
-"""Two-process distributed-execution child — per-shard PALLAS KERNEL path.
+"""Two-process distributed-execution child — the GSPMD family path.
 
 Spawned (twice) by
-``test_sharding.py::test_distributed_two_process_kernel_parity`` and by
-``__graft_entry__.dryrun_multichip``: each process owns 4 virtual CPU
-devices; ``init_distributed`` joins them into one 8-device job, and
-:class:`ShardedDiffusion` runs the K-step temporal HALO KERNEL per shard
-(interpret mode on CPU) with ``ppermute`` halo-chunk exchange — i.e. halo
-chunks feeding a Pallas kernel cross a real PROCESS boundary, the
-configuration a multi-host TPU pod actually runs (VERDICT r4 #3; the
-sibling ``_dist_child_pipe.py`` covers only the XLA-halo flow path).
+``test_sharding.py::test_distributed_two_process_kernel_parity``: each
+process owns 4 virtual CPU devices; ``init_distributed`` joins them into one
+8-device job, and :class:`ShardedDiffusion` runs the family's XLA step under
+GSPMD, so the rolls' halo collective-permutes cross a real PROCESS boundary
+(the sibling ``_dist_child_pipe.py`` covers the ``shard_map`` flow path).
 
 argv: process_id coordinator_port num_steps
 """
@@ -49,7 +46,6 @@ base = ReactionAdvectionDiffusion(N=254, z=0.1, D=0.005, vx=1.0, vy=0.5,
                                   vc=1.0, Lx=0.101, Ly=0.101, g=1.0)
 assert (base.ny, base.nx) == (256, 256), (base.ny, base.nx)
 sim = ShardedDiffusion(base, mesh=mesh)
-assert sim.steps_per_call > 1          # the Pallas kernel path, not XLA
 sim.run(STEPS)
 
 # Replicated diagnostics every process can read: global mass + the x- and
@@ -60,5 +56,5 @@ mass, prof = float(rep[0]), np.asarray(rep[1])
 assert np.isfinite(prof).all()
 print("RESULT " + json.dumps({
     "pid": PID, "ndev": len(jax.devices()), "nproc": jax.process_count(),
-    "K": int(sim.steps_per_call), "mass": mass, "prof": prof.tolist()}),
+    "mass": mass, "prof": prof.tolist()}),
     flush=True)

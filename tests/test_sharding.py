@@ -97,7 +97,7 @@ def test_multicomponent_gspmd_sharding(has8):
 
 
 class TestTemporalSharded:
-    """Pallas temporal kernel inside shard_map (ops/fused_halo.py)."""
+    """ShardedPipeFlow's shard_map halo step on y meshes and 1x1 meshes."""
 
     KW = dict(N=255, pipe_length=1.5 * 126.5 / 255, **PARAMS)
 
@@ -105,8 +105,7 @@ class TestTemporalSharded:
         mesh = make_mesh(8, shape=(8, 1))
         single = PipeFlow(backend="xla", **self.KW)
         assert (single.ny, single.nx) == (256, 128)
-        sh = ShardedPipeFlow(mesh=mesh, backend="temporal", **self.KW)
-        assert sh.steps_per_call >= 2
+        sh = ShardedPipeFlow(mesh=mesh, **self.KW)
         single.run(8)
         sh.run(8)
         np.testing.assert_allclose(
@@ -114,11 +113,10 @@ class TestTemporalSharded:
             rtol=1e-6, atol=1e-7)
 
     def test_one_device_mesh_deep_k(self, has8):
-        """1x1 mesh: ppermute is the identity; picks the deepest K."""
+        """1x1 mesh: the halo exchange is the local periodic wrap."""
         mesh = make_mesh(1, shape=(1, 1))
         single = PipeFlow(backend="xla", **self.KW)
-        sh = ShardedPipeFlow(mesh=mesh, backend="temporal", **self.KW)
-        assert sh.steps_per_call == 8
+        sh = ShardedPipeFlow(mesh=mesh, **self.KW)
         single.run(8)
         sh.run(8)
         np.testing.assert_allclose(
@@ -126,51 +124,23 @@ class TestTemporalSharded:
             rtol=1e-6, atol=1e-7)
 
     def test_one_device_mesh_halo_only_grid(self, has8):
-        """1x1 mesh on a grid only the HALO kernel tiles (64x128: the
-        unsharded temporal kernel supports no K) must fall back to the
-        shard_map halo step instead of raising (advisor r4, high)."""
+        """1x1 mesh, 64x128 grid: "auto" and "xla" both run the shard_map
+        halo step."""
         mesh = make_mesh(1, shape=(1, 1))
         kw = dict(N=63, pipe_length=1.5 * 127 / 63, **PARAMS)
         single = PipeFlow(backend="xla", **kw)
         assert (single.ny, single.nx) == (64, 128)
-        for backend in ("temporal", "auto"):
+        for backend in ("xla", "auto"):
             sh = ShardedPipeFlow(mesh=mesh, backend=backend, **kw)
-            assert sh.backend == "temporal"
+            assert sh.backend == "xla"
             sh.run(7)
         single.run(7)
         np.testing.assert_allclose(
             np.asarray(jax.device_get(sh.state)), np.asarray(single.state),
             rtol=1e-6, atol=1e-7)
 
-    def test_one_device_mesh_clamps_explicit_k(self, has8):
-        """1x1-mesh bypass clamps an oversized explicit k_steps to the
-        deepest ring the UNSHARDED kernel supports (advisor r4, medium):
-        128x128 supports K in (4, 2) only, so k_steps=8 -> 4."""
-        mesh = make_mesh(1, shape=(1, 1))
-        kw = dict(N=127, pipe_length=1.5, **PARAMS)
-        single = PipeFlow(backend="xla", **kw)
-        assert (single.ny, single.nx) == (128, 128)
-        sh = ShardedPipeFlow(mesh=mesh, backend="temporal", k_steps=8, **kw)
-        assert sh.steps_per_call == 4
-        single.run(9)
-        sh.run(9)
-        np.testing.assert_allclose(
-            np.asarray(jax.device_get(sh.state)), np.asarray(single.state),
-            rtol=1e-6, atol=1e-7)
-
-    def test_remainder_steps(self, has8):
-        """Iteration counts not divisible by K run the XLA remainder."""
-        mesh = make_mesh(8, shape=(8, 1))
-        single = PipeFlow(backend="xla", **self.KW)
-        sh = ShardedPipeFlow(mesh=mesh, backend="temporal", **self.KW)
-        single.run(11)
-        sh.run(11)
-        np.testing.assert_allclose(
-            np.asarray(jax.device_get(sh.state)), np.asarray(single.state),
-            rtol=1e-6, atol=1e-7)
-
     def test_auto_backend_falls_back(self, has8):
-        """Tiny shards (H=16) cannot host the VMEM rings; auto -> xla."""
+        """Tiny shards (H=16): "auto" resolves to the XLA halo step."""
         mesh = make_mesh(8, shape=(8, 1))
         kw = dict(N=127, pipe_length=1.5 * 126.5 / 127, **PARAMS)
         sh = ShardedPipeFlow(mesh=mesh, backend="auto", **kw)
@@ -181,7 +151,7 @@ class TestTemporalSharded:
         staging) and matches the single-device fields."""
         mesh = make_mesh(8, shape=(8, 1))
         single = PipeFlow(backend="xla", **self.KW)
-        sh = ShardedPipeFlow(mesh=mesh, backend="temporal", **self.KW)
+        sh = ShardedPipeFlow(mesh=mesh, **self.KW)
         single.run(8)
         sh.run(8)
         a = single.get_fields()
@@ -199,9 +169,9 @@ class TestTemporalSharded:
 # ---- ShardedDiffusion (VERDICT r1 #6: shard the diffusion family) ---------
 
 def test_sharded_diffusion_parity():
-    """Deterministic Fisher wave: K-step halo kernel inside shard_map on a
-    virtual 4x1 mesh matches the unsharded XLA step (no seam patch needed —
-    the ppermute ring IS the periodic wrap)."""
+    """Deterministic Fisher wave under GSPMD on a virtual 4x1 mesh matches
+    the unsharded XLA step (the collective-permute ring IS the periodic
+    wrap)."""
     import jax
     import jax.numpy as jnp
     from lb2d_tpu.models.diffusion import ReactionAdvectionDiffusion
@@ -210,22 +180,21 @@ def test_sharded_diffusion_parity():
     kw = dict(N=126, z=0.1, D=0.005, vx=1.0, vy=0.5, vc=1.0,
               Lx=0.101, Ly=0.101, g=1.0)
     ref = ReactionAdvectionDiffusion(**kw)
-    step = ref._make_xla_step()
+    step = ref.make_step()
     run = jax.jit(lambda f, n: jax.lax.fori_loop(
         0, n, lambda i, s: step(s), f))
     fref = run(ref.state, 7)
 
     sh = ShardedDiffusion(ReactionAdvectionDiffusion(**kw),
                           mesh=make_mesh(4, shape=(4, 1)))
-    assert sh.steps_per_call > 1
-    sh.run(7)  # 3 sweeps + 1 remainder step
+    sh.run(7)
     np.testing.assert_allclose(np.asarray(sh.state), np.asarray(fref),
                                atol=1e-6, rtol=1e-5)
 
 
 def test_sharded_diffusion_noisy_runs():
-    """Stochastic Fisher on the sharded on-core-PRNG path: positive,
-    finite, and actually grows toward carrying capacity."""
+    """Stochastic Fisher sharded: positive, finite, and actually grows
+    toward carrying capacity."""
     from lb2d_tpu.models.diffusion import (
         ReactionAdvectionDiffusionStochastic)
     from lb2d_tpu.parallel.sharded import ShardedDiffusion, make_mesh
@@ -243,8 +212,8 @@ def test_sharded_diffusion_noisy_runs():
 
 
 def test_sharded_multifield_fisher_parity():
-    """Multifield Fisher (no-flux walls) on the sharded halo kernel + wall
-    band patch matches the unsharded XLA step, incl. the remainder path."""
+    """Multifield Fisher (no-flux walls, masked selects) under GSPMD
+    matches the unsharded XLA step."""
     import jax
     from lb2d_tpu.models.multifield import FisherExpansion
     from lb2d_tpu.parallel.sharded import ShardedMultifield, make_mesh
@@ -253,15 +222,14 @@ def test_sharded_multifield_fisher_parity():
                D_standard=1.0, D_list=[1.0, 1.0], N=126,
                initial_frac_widths=[0.5, 0.5], initial_frac_indices=[0, 1])
     ref = FisherExpansion(**kwf)
-    step = ref._make_xla_step()
+    step = ref.make_step()
     fref = ref.state
     for _ in range(7):
         fref = step(fref)
     sh = ShardedMultifield(FisherExpansion(**kwf),
                            mesh=make_mesh(4, shape=(4, 1)))
-    assert sh.steps_per_call > 1
     sh.run(7)
-    np.testing.assert_allclose(np.asarray(sh._state4()), np.asarray(fref),
+    np.testing.assert_allclose(np.asarray(sh.state), np.asarray(fref),
                                atol=1e-6, rtol=1e-5)
 
 
@@ -274,10 +242,10 @@ def test_sharded_multifield_expansion_runs():
     ex = Expansion(Lx=2.05, Ly=2.05, mu_standard=1.0, mu_list=[1.0, 0.8],
                    D_standard=1.0, D_list=[1.0, 1.0], N=126)
     sh = ShardedMultifield(ex, mesh=make_mesh(4, shape=(4, 1)))
-    f0, _ = sh._state4()
+    f0, _ = sh.state
     nut0 = float(np.asarray(f0.sum(axis=0)[-1]).sum())
     sh.run(6)
-    f, _ = sh._state4()
+    f, _ = sh.state
     rho = np.asarray(f.sum(axis=0))
     assert np.isfinite(rho).all() and rho.min() >= 0.0
     assert rho[-1].sum() < nut0  # nutrient consumed by growth
@@ -303,8 +271,8 @@ def test_noflux_bcs_gspmd_safe():
 
 
 def test_sharded_coupled_rocket_yeast_parity():
-    """K-deep rocket-yeast kernel per shard (fully local physics) matches
-    the unsharded XLA step."""
+    """Rocket yeast (fully local physics) under GSPMD matches the
+    unsharded XLA step."""
     import jax
     from lb2d_tpu.models.rocket_yeast import RocketYeast
     from lb2d_tpu.parallel.sharded import ShardedCoupled, make_mesh
@@ -312,22 +280,20 @@ def test_sharded_coupled_rocket_yeast_parity():
     kw = dict(Lx=1.0, Ly=1.0, R0=0.2, epsilon=0.05, Gc=2.0, N=128,
               G_chen=-0.1)
     ref = RocketYeast(**kw)
-    xs = jax.jit(ref._make_xla_step())
+    xs = jax.jit(ref.make_step())
     fx = ref.state
     for _ in range(7):
         fx = xs(fx)
     sh = ShardedCoupled(RocketYeast(**kw), mesh=make_mesh(4, shape=(4, 1)))
-    assert sh.steps_per_call > 1
-    sh.run(7)  # sweeps + remainder
-    np.testing.assert_allclose(np.asarray(sh._state_model()),
+    sh.run(7)
+    np.testing.assert_allclose(np.asarray(sh.state),
                                np.asarray(fx), atol=5e-7, rtol=1e-5)
 
 
 def test_sharded_coupled_rocket_yeast_forces_only_parity():
     """The sharded forces-only variant must run the forces-only velocity
-    (pseudo-force + surface tension), not silently fall back to the
-    standard rocket-yeast physics (regression: the kernel factory was
-    called without the forces_only kwargs)."""
+    (pseudo-force + surface tension), not the standard rocket-yeast
+    physics."""
     import jax
     from lb2d_tpu.models.rocket_yeast import RocketYeastForcesOnly
     from lb2d_tpu.parallel.sharded import ShardedCoupled, make_mesh
@@ -335,199 +301,125 @@ def test_sharded_coupled_rocket_yeast_forces_only_parity():
     kw = dict(Lx=1.0, Ly=1.0, R0=0.2, epsilon=0.05, Gc=2.0, N=128,
               G_chen=-0.1, c_o=0.3, alpha=2.0)
     ref = RocketYeastForcesOnly(**kw)
-    xs = jax.jit(ref._make_xla_step())
+    xs = jax.jit(ref.make_step())
     fx = ref.state
     for _ in range(7):
         fx = xs(fx)
     sh = ShardedCoupled(RocketYeastForcesOnly(**kw),
                         mesh=make_mesh(4, shape=(4, 1)))
     sh.run(7)
-    np.testing.assert_allclose(np.asarray(sh._state_model()),
+    np.testing.assert_allclose(np.asarray(sh.state),
                                np.asarray(fx), atol=5e-7, rtol=1e-5)
 
 
 def test_sharded_coupled_spectral_parity():
     """Spectral-velocity families sharded: the screened-Poisson solve runs
-    globally under GSPMD, the kernel per shard."""
+    under GSPMD on the matmul DFT, against the unsharded ``jnp.fft``
+    solve."""
     import jax
     from lb2d_tpu.models.waves import ScreenedFisherWave
     from lb2d_tpu.parallel.sharded import ShardedCoupled, make_mesh
 
     kw = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=128)
     ref = ScreenedFisherWave(**kw)
-    xs = jax.jit(ref._make_xla_step())
+    xs = jax.jit(ref.make_step())
     fx = ref.state
     for _ in range(5):
         fx = xs(fx)
     sh = ShardedCoupled(ScreenedFisherWave(**kw),
                         mesh=make_mesh(4, shape=(4, 1)))
     sh.run(5)
-    np.testing.assert_allclose(np.asarray(sh._state_model()),
+    np.testing.assert_allclose(np.asarray(sh.state),
                                np.asarray(fx), atol=5e-7, rtol=1e-5)
 
 
-def test_sharded_coupled_spectral_stale_parity():
-    """Sweep-stale spectral family on a sharded mesh (one global solve per
-    K-step sweep, ext halo chunks ppermuted from the y-neighbors) matches
-    the UNSHARDED stale kernel path bit-close — the halo ext rows must be
-    the true neighbor values, not the shard-local wrap."""
-    import jax
-    from lb2d_tpu.models.waves import ScreenedFisherWave
-    from lb2d_tpu.parallel.sharded import ShardedCoupled, make_mesh
-
-    kw = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=128,
-              stale_velocity=2)
-    ref = ScreenedFisherWave(**kw)
-    ref.run(6)   # 3 sweeps through the unsharded stale kernel
-    sh = ShardedCoupled(ScreenedFisherWave(**kw),
-                        mesh=make_mesh(4, shape=(4, 1)))
-    assert sh.steps_per_call == 2
-    sh.run(6)
-    np.testing.assert_allclose(np.asarray(sh._state_model()),
-                               np.asarray(ref.state), atol=5e-7, rtol=1e-5)
-
-
 def test_sharded_coupled_2d_mesh_parity():
-    """ShardedCoupled on a 2-D mesh: x-neighbor 128-lane strips keep the
-    coupled kernels on the kernel path with x-sharding. Rocket-yeast
-    (K-deep, no ext) and the spectral wave (per-step GSPMD solve + ext
-    planes) vs the unsharded oracles on a virtual 2x2 mesh."""
+    """ShardedCoupled on a 2-D mesh: rocket yeast and the spectral wave
+    (GSPMD matmul-DFT solve) vs the unsharded XLA steps on a virtual 2x2
+    mesh."""
     import jax
     from lb2d_tpu.models.rocket_yeast import RocketYeast
     from lb2d_tpu.models.waves import ScreenedFisherWave
     from lb2d_tpu.parallel.sharded import ShardedCoupled, make_mesh
 
-    kw = dict(Lx=1.0, Ly=1.0, R0=0.2, epsilon=0.05, Gc=2.0, N=256,
+    kw = dict(Lx=1.0, Ly=1.0, R0=0.2, epsilon=0.05, Gc=2.0, N=64,
               G_chen=-0.1)
     ref = RocketYeast(**kw)
-    xs = jax.jit(ref._make_xla_step())
+    xs = jax.jit(ref.make_step())
     fx = ref.state
     for _ in range(7):
         fx = xs(fx)
     sh = ShardedCoupled(RocketYeast(**kw), mesh=make_mesh(4, shape=(2, 2)))
-    assert sh.steps_per_call > 1
     sh.run(7)
-    np.testing.assert_allclose(np.asarray(sh._state_model()),
+    np.testing.assert_allclose(np.asarray(sh.state),
                                np.asarray(fx), atol=5e-7, rtol=1e-5)
 
-    kw2 = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=256)
+    kw2 = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=64)
     ref2 = ScreenedFisherWave(**kw2)
-    xs2 = jax.jit(ref2._make_xla_step())
+    xs2 = jax.jit(ref2.make_step())
     fx2 = ref2.state
     for _ in range(4):
         fx2 = xs2(fx2)
     sh2 = ShardedCoupled(ScreenedFisherWave(**kw2),
                          mesh=make_mesh(4, shape=(2, 2)))
     sh2.run(4)
-    np.testing.assert_allclose(np.asarray(sh2._state_model()),
+    np.testing.assert_allclose(np.asarray(sh2.state),
                                np.asarray(fx2), atol=5e-7, rtol=1e-5)
 
 
-def test_sharded_coupled_2d_stale_parity():
-    """The remaining combination: sweep-stale spectral family on a 2-D
-    mesh — ppermuted ext halo chunks AND x-neighbor lane strips in one
-    step. Parity vs the unsharded stale kernel on a virtual 2x2 mesh."""
-    from lb2d_tpu.models.waves import ScreenedFisherWave
-    from lb2d_tpu.parallel.sharded import ShardedCoupled, make_mesh
-
-    kw = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=256,
-              stale_velocity=2)
-    ref = ScreenedFisherWave(**kw)
-    ref.run(6)
-    sh = ShardedCoupled(ScreenedFisherWave(**kw),
-                        mesh=make_mesh(4, shape=(2, 2)))
-    assert sh.steps_per_call == 2
-    sh.run(6)
-    np.testing.assert_allclose(np.asarray(sh._state_model()),
-                               np.asarray(ref.state), atol=5e-7, rtol=1e-5)
-
-
-def test_sharded_velocity_clears_pallas_gate():
+def test_sharded_velocity_uses_partitionable_dft():
     """Under a >1-device mesh the screened-velocity solve must take the
-    GSPMD-partitionable matmul path, never the opaque Pallas custom call
-    (waves.py allow_pallas gate)."""
+    GSPMD-partitionable matmul DFT, never the FFT custom call, in both
+    ShardedCoupled and SimulationRunner.shard_over; a 1-device mesh keeps
+    the FFT."""
     from lb2d_tpu.models.multicomponent import Fluid, SimulationRunner
     from lb2d_tpu.models.waves import ScreenedFisherWave
     from lb2d_tpu.parallel.sharded import ShardedCoupled, make_mesh
 
-    base = ScreenedFisherWave(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2,
-                              N=128)
-    assert base._velocity.allow_pallas
+    kw = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=32)
+    base = ScreenedFisherWave(**kw)
+    assert base._velocity.method == "fft"
+    ShardedCoupled(base, mesh=make_mesh(1, shape=(1, 1)))
+    assert base._velocity.method == "fft"
     ShardedCoupled(base, mesh=make_mesh(4, shape=(4, 1)))
-    assert not base._velocity.allow_pallas
+    assert base._velocity.method == "matmul"
+    with pytest.warns(UserWarning, match="overriding explicit"):
+        ShardedCoupled(ScreenedFisherWave(method="fft", **kw),
+                       mesh=make_mesh(4, shape=(4, 1)))
 
-    sim = SimulationRunner(nx=128, ny=128, L_lb=128, T_lb=1.0,
+    sim = SimulationRunner(nx=32, ny=32, L_lb=32, T_lb=1.0,
                            num_populations=2)
     for i in range(2):
         sim.add_fluid(Fluid(sim, i, nu_e=1.0 / 6.0))
     sim.complete_setup()
-    sim.fluid_list[0].initialize(np.full((128, 128), 0.5, np.float32))
-    sim.fluid_list[1].initialize(np.full((128, 128), 0.5, np.float32))
+    sim.fluid_list[0].initialize(np.full((32, 32), 0.5, np.float32))
+    sim.fluid_list[1].initialize(np.full((32, 32), 0.5, np.float32))
     sim.add_screened_poisson_force(0, 1, interaction_length=4.0,
                                    amplitude=1e-4)
-    vel = next(d[3] for d in sim._force_desc if d[0] == "dyn_ext")
-    assert vel.allow_pallas
+    vel = sim._screened[0]
+    assert vel.method == "fft"
     sim.shard_over(make_mesh(4, shape=(4, 1)))
-    assert not vel.allow_pallas
-
-
-class TestTemporalSharded2D:
-    """x-extended temporal kernel on 2-D meshes (lane-direction halo
-    strips ppermuted from x-neighbors; VERDICT r2 item 4)."""
-
-    KW = dict(N=255, pipe_length=1.5 * 510.5 / 255, **PARAMS)  # 256 x 512
-
-    def test_2x4_mesh_kernel_parity(self, has8):
-        mesh = make_mesh(8, shape=(2, 4))
-        single = PipeFlow(backend="xla", **self.KW)
-        assert (single.ny, single.nx) == (256, 512)
-        sh = ShardedPipeFlow(mesh=mesh, backend="temporal", **self.KW)
-        assert sh.steps_per_call >= 2  # kernel path engaged on mx=4
-        single.run(8)
-        sh.run(8)
-        np.testing.assert_allclose(
-            np.asarray(jax.device_get(sh.state)), np.asarray(single.state),
-            rtol=1e-6, atol=1e-7)
-
-    def test_4x2_mesh_auto_and_remainder(self, has8):
-        mesh = make_mesh(8, shape=(4, 2))
-        single = PipeFlow(backend="xla", **self.KW)
-        sh = ShardedPipeFlow(mesh=mesh, backend="auto", **self.KW)
-        assert sh.backend == "temporal"  # auto engages the 2-D kernel path
-        single.run(sh.steps_per_call + 3)  # sweep + XLA remainder
-        sh.run(sh.steps_per_call + 3)
-        np.testing.assert_allclose(
-            np.asarray(jax.device_get(sh.state)), np.asarray(single.state),
-            rtol=1e-6, atol=1e-7)
-
-    def test_unaligned_width_falls_back(self, has8):
-        # W = 128/4 = 32 lanes per shard: not 128-aligned -> XLA path
-        mesh = make_mesh(8, shape=(2, 4))
-        kw = dict(N=255, pipe_length=1.5 * 126.5 / 255, **PARAMS)  # 256x128
-        sh = ShardedPipeFlow(mesh=mesh, backend="auto", **kw)
-        assert sh.backend == "xla"
+    assert vel.method == "matmul"
 
 
 def test_sharded_diffusion_2d_mesh_parity():
-    """Diffusion family on a 2x4 mesh: x-extended kernel, periodic wrap IS
-    the ppermute ring in both directions."""
+    """Diffusion family on a 2x4 mesh: the periodic wrap IS the
+    collective-permute ring in both directions."""
     import jax
     from lb2d_tpu.models.diffusion import ReactionAdvectionDiffusion
     from lb2d_tpu.parallel.sharded import ShardedDiffusion, make_mesh
 
-    # 512x512 grid -> shards 256 rows x 128 lanes on a 2x4 mesh
-    kw = dict(N=510, z=0.1, D=0.005, vx=1.0, vy=0.5, vc=1.0,
+    kw = dict(N=126, z=0.1, D=0.005, vx=1.0, vy=0.5, vc=1.0,
               Lx=0.101, Ly=0.101, g=1.0)
     ref = ReactionAdvectionDiffusion(**kw)
-    assert (ref.ny, ref.nx) == (512, 512)
-    step = ref._make_xla_step()
+    assert (ref.ny, ref.nx) == (128, 128)
+    step = ref.make_step()
     run = jax.jit(lambda f, n: jax.lax.fori_loop(
         0, n, lambda i, s: step(s), f))
     fref = run(ref.state, 5)
 
     sh = ShardedDiffusion(ReactionAdvectionDiffusion(**kw),
                           mesh=make_mesh(8, shape=(2, 4)))
-    assert sh.steps_per_call > 1
     sh.run(5)
     np.testing.assert_allclose(np.asarray(sh.state), np.asarray(fref),
                                atol=1e-6, rtol=1e-5)
@@ -543,7 +435,7 @@ def test_distributed_single_process_init(has8):
     assert is_initialized()
     mesh = global_mesh()
     assert mesh.shape["y"] * mesh.shape["x"] == len(jax.devices())
-    assert mesh.shape["y"] >= mesh.shape["x"]  # y-major (kernel fast path)
+    assert mesh.shape["y"] >= mesh.shape["x"]  # rows stay process-contiguous
     # the mesh drives the ordinary sharded surface
     kw = dict(N=15, pipe_length=1.5 * 30.5 / 15, **PARAMS)
     mesh2 = global_mesh(shape=(8, 1))
@@ -598,10 +490,10 @@ def test_distributed_two_process_parity(has8):
 
 
 def test_distributed_two_process_kernel_parity(has8):
-    """The per-shard PALLAS KERNEL families across a real process boundary
-    (VERDICT r4 #3): two CPU processes run ShardedDiffusion over the
-    8-device global mesh — ppermute halo chunks feed the K-step temporal
-    halo kernel across processes — and match the single-process run."""
+    """The GSPMD families across a real process boundary: two CPU
+    processes run ShardedDiffusion over the 8-device global mesh — the
+    rolls' collective-permutes cross processes — and match the
+    single-process run."""
     import json
     import os
     import socket
@@ -627,11 +519,10 @@ def test_distributed_two_process_kernel_parity(has8):
         line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")][-1]
         outs.append(json.loads(line[len("RESULT "):]))
     assert [o["nproc"] for o in outs] == [2, 2]
-    assert all(o["K"] > 1 for o in outs)      # kernel path, not XLA
     np.testing.assert_array_equal(outs[0]["prof"], outs[1]["prof"])
     assert outs[0]["mass"] == outs[1]["mass"]
     # parity vs the single-process run on this test process's 8 devices
-    # (same mesh shape, same K, same ppermute ring -> same numerics)
+    # (same mesh shape, same partitioned program -> same numerics)
     from lb2d_tpu.models.diffusion import ReactionAdvectionDiffusion
     from lb2d_tpu.parallel.distributed import global_mesh
     from lb2d_tpu.parallel.sharded import ShardedDiffusion
@@ -646,43 +537,150 @@ def test_distributed_two_process_kernel_parity(has8):
 
 
 def test_sharded_multifield_fisher_2d_mesh_parity():
-    """FisherExpansion on a 2-D mesh: x-neighbor lane strips + the x-wall
-    lane-band splice mirror the y machinery; parity vs the unsharded XLA
-    step on a virtual 2x2 mesh (VERDICT r3 #6)."""
+    """FisherExpansion on a 2-D mesh (no-flux walls on both sharded
+    axes): parity vs the unsharded XLA step on a virtual 2x2 mesh."""
     import jax
     from lb2d_tpu.models.multifield import FisherExpansion
     from lb2d_tpu.parallel.sharded import ShardedMultifield, make_mesh
 
     kwf = dict(Lx=2.05, Ly=2.05, mu_standard=1.0, mu_list=[1.0, 0.8],
-               D_standard=1.0, D_list=[1.0, 1.0], N=254,
+               D_standard=1.0, D_list=[1.0, 1.0], N=62,
                initial_frac_widths=[0.5, 0.5], initial_frac_indices=[0, 1])
     ref = FisherExpansion(**kwf)
-    assert (ref.ny, ref.nx) == (256, 256)
-    step = ref._make_xla_step()
+    assert (ref.ny, ref.nx) == (64, 64)
+    step = ref.make_step()
     fref = ref.state
     for _ in range(5):
         fref = step(fref)
     sh = ShardedMultifield(FisherExpansion(**kwf),
                            mesh=make_mesh(4, shape=(2, 2)))
-    assert sh.steps_per_call > 1
     sh.run(5)
-    np.testing.assert_allclose(np.asarray(sh._state4()), np.asarray(fref),
+    np.testing.assert_allclose(np.asarray(sh.state), np.asarray(fref),
                                atol=1e-6, rtol=1e-5)
 
 
 def test_sharded_multifield_expansion_2d_runs():
     """Stochastic Expansion on a 2-D mesh: finite, non-negative, nutrient
-    consumed (noise realization differs per shard by design)."""
+    consumed."""
     from lb2d_tpu.models.multifield import Expansion
     from lb2d_tpu.parallel.sharded import ShardedMultifield, make_mesh
 
     ex = Expansion(Lx=2.05, Ly=2.05, mu_standard=1.0, mu_list=[1.0, 0.8],
-                   D_standard=1.0, D_list=[1.0, 1.0], N=254)
+                   D_standard=1.0, D_list=[1.0, 1.0], N=62)
     sh = ShardedMultifield(ex, mesh=make_mesh(4, shape=(2, 2)))
-    f0, _ = sh._state4()
+    f0, _ = sh.state
     nut0 = float(np.asarray(f0.sum(axis=0)[-1]).sum())
-    sh.run(sh.steps_per_call * 2 + 1)
-    f, _ = sh._state4()
+    sh.run(5)
+    f, _ = sh.state
     rho = np.asarray(f.sum(axis=0))
     assert np.isfinite(rho).all() and rho.min() >= 0.0
     assert rho[-1].sum() < nut0  # nutrient consumed by growth
+
+
+# ---- every sharded surface against its unsharded model ---------------------
+
+def _pipe_pair(obstacle=False):
+    kw = dict(N=15, pipe_length=1.5 * 30.5 / 15, **PARAMS)  # 16 x 32
+    if obstacle:
+        mask = np.zeros((16, 32), np.int32)
+        mask[5:11, 10:16] = 1
+        kw["obstacle_mask"] = mask
+    return (lambda: PipeFlow(**kw),
+            lambda mesh: ShardedPipeFlow(mesh=mesh, **kw))
+
+
+def _family_pair(wrapper, build):
+    return build, lambda mesh: wrapper(build(), mesh=mesh)
+
+
+def _runner_pair():
+    from lb2d_tpu.models.multicomponent import Fluid, SimulationRunner
+
+    def build():
+        sim = SimulationRunner(nx=32, ny=16, L_lb=32, num_populations=2,
+                               porous=True)
+        for i in range(2):
+            sim.add_fluid(Fluid(sim, i, nu_e=0.4, epsilon=0.9, nu_fluid=0.3,
+                                K=1.0, Fe=0.1))
+        sim.complete_setup()
+        base = 0.5 + 0.05 * np.random.RandomState(0).rand(16, 32)
+        sim.fluid_list[0].initialize(base)
+        sim.fluid_list[1].initialize(1.0 - base)
+        sim.add_interaction_force(0, 1, G_int=1.5, potential="shan_chen",
+                                  potential_parameters=[1.0])
+        sim.add_screened_poisson_force(0, 1, interaction_length=4.0,
+                                       amplitude=1e-3)
+        return sim
+
+    def sharded(mesh):
+        return build().shard_over(mesh)
+
+    return build, sharded
+
+
+def _surface(name):
+    from lb2d_tpu.models import (Expansion, FisherExpansion,
+                                 ReactionAdvectionDiffusion,
+                                 ReactionAdvectionDiffusionStochastic,
+                                 RocketYeast, ScreenedFisherWave,
+                                 SurfactantNutrientWave)
+    from lb2d_tpu.parallel.sharded import (ShardedCoupled, ShardedDiffusion,
+                                           ShardedMultifield)
+
+    diff = dict(N=30, z=0.1, D=0.005, vx=1.0, vy=0.5, vc=1.0, Lx=0.101,
+                Ly=0.101, g=1.0)                       # 32 x 32
+    mf = dict(Lx=2.05, Ly=2.05, mu_standard=1.0, mu_list=[1.0, 0.8],
+              D_standard=1.0, D_list=[1.0, 1.0], N=30)  # 32 x 32
+    return {
+        "pipe": lambda: _pipe_pair(),
+        "pipe_obstacle": lambda: _pipe_pair(obstacle=True),
+        "diffusion": lambda: _family_pair(
+            ShardedDiffusion, lambda: ReactionAdvectionDiffusion(**diff)),
+        "diffusion_stochastic": lambda: _family_pair(
+            ShardedDiffusion,
+            lambda: ReactionAdvectionDiffusionStochastic(Dg=0.05, **diff)),
+        "multifield_fisher": lambda: _family_pair(
+            ShardedMultifield, lambda: FisherExpansion(
+                initial_frac_widths=[0.5, 0.5], initial_frac_indices=[0, 1],
+                **mf)),
+        "multifield_expansion": lambda: _family_pair(
+            ShardedMultifield, lambda: Expansion(**mf)),
+        "rocket_yeast": lambda: _family_pair(
+            ShardedCoupled, lambda: RocketYeast(
+                Lx=1.0, Ly=1.0, R0=0.2, epsilon=0.05, Gc=2.0, N=32,
+                G_chen=-0.1)),
+        "surfactant": lambda: _family_pair(
+            ShardedCoupled, lambda: SurfactantNutrientWave(
+                Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=32)),
+        "screened_wave": lambda: _family_pair(
+            ShardedCoupled, lambda: ScreenedFisherWave(
+                Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=32)),
+        "multicomponent": _runner_pair,
+    }[name]()
+
+
+def _main_leaf(model):
+    state = model.f if hasattr(model, "f") else model.state
+    return np.asarray(jax.device_get(jax.tree_util.tree_leaves(state)[0]))
+
+
+@pytest.mark.parametrize("mesh_shape", [(4, 1), (2, 2), (2, 4)])
+@pytest.mark.parametrize("surface", [
+    "pipe", "pipe_obstacle", "diffusion", "diffusion_stochastic",
+    "multifield_fisher", "multifield_expansion", "rocket_yeast",
+    "surfactant", "screened_wave", "multicomponent"])
+def test_sharded_surface_matches_unsharded(has8, surface, mesh_shape):
+    """Each sharded surface on a virtual mesh computes what its unsharded
+    model computes (the spectral families solve with the matmul DFT under
+    the mesh and with ``jnp.fft`` unsharded, hence the tolerance)."""
+    build, sharded = _surface(surface)
+    n = mesh_shape[0] * mesh_shape[1]
+    ref = build()
+    sh = sharded(make_mesh(n, shape=mesh_shape))
+    ref.run(6)
+    sh.run(6)
+    state = sh.f if hasattr(sh, "f") else sh.state
+    leaf = jax.tree_util.tree_leaves(state)[0]
+    assert len(leaf.sharding.device_set) == n
+    np.testing.assert_allclose(_main_leaf(sh), _main_leaf(ref),
+                               rtol=1e-5, atol=1e-6)

@@ -99,88 +99,3 @@ def test_rocket_yeast_forces_only_runs():
     rho = sim.get_fields()["rho"]
     assert np.isfinite(rho).all()
     assert rho[:, :, 1].sum() > 0
-
-
-# ---- fused kernel paths (ops/fused_coupled.py, interpret mode) ------------
-
-def _kernel_parity(model, steps=6, k_steps=None, ext_vel=False):
-    import jax
-    import jax.numpy as jnp
-
-    xstep = jax.jit(model._make_xla_step())
-    fx = model.state
-    for _ in range(steps):
-        fx = xstep(fx)
-    if ext_vel:
-        raw = model._make_kernel_step(interpret=True)
-        spc = 1
-    else:
-        raw = model._make_kernel_step(k_steps=k_steps, interpret=True)
-        spc = model.steps_per_call
-    kstep = jax.jit(raw)
-    assert steps % spc == 0
-    if getattr(raw, "carried", False):
-        # density-emit steps carry (f, rho)
-        carry = raw.init_carry(model.state)
-        for _ in range(steps // spc):
-            carry = kstep(carry)
-        fk = carry[0]
-    else:
-        fk = model.state
-        for _ in range(steps // spc):
-            fk = kstep(fk)
-    return float(jnp.abs(fk - fx).max())
-
-
-def test_rocket_yeast_kernel_parity():
-    """Fused temporal rocket-yeast kernel (gradient velocity + pseudo-force
-    + growth/production, K LB steps per sweep) == XLA step."""
-    from lb2d_tpu.models.rocket_yeast import RocketYeast
-
-    m = RocketYeast(Lx=1.0, Ly=1.0, R0=0.2, epsilon=0.05, Gc=2.0, N=128,
-                    G_chen=-0.1)
-    assert _kernel_parity(m, steps=6, k_steps=3) < 5e-7
-
-
-def test_rocket_yeast_forces_only_kernel_parity():
-    from lb2d_tpu.models.rocket_yeast import RocketYeastForcesOnly
-
-    m = RocketYeastForcesOnly(Lx=1.0, Ly=1.0, R0=0.2, epsilon=0.05, Gc=2.0,
-                              N=128, G_chen=-0.1, c_o=0.25, alpha=2.0)
-    assert _kernel_parity(m, steps=6, k_steps=2) < 5e-7
-
-
-def test_surfactant_kernel_parity():
-    """Fused surfactant kernel with the screened-Poisson velocity entering
-    as external planes == XLA step."""
-    from lb2d_tpu.models.surfactant import SurfactantNutrientWave
-
-    m = SurfactantNutrientWave(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2,
-                               N=128)
-    assert _kernel_parity(m, steps=5, ext_vel=True) < 5e-7
-
-
-def test_clumpy_surfactant_kernel_parity():
-    from lb2d_tpu.models.surfactant import ClumpySurfactantNutrientWave
-
-    m = ClumpySurfactantNutrientWave(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5,
-                                     R0=0.2, N=128, rho_o=1.0, G_chen=-5.0)
-    assert _kernel_parity(m, steps=5, ext_vel=True) < 5e-7
-
-
-def test_surfactant_stale_velocity_runs():
-    """Sweep-stale surfactant model: K-deep kernel with frozen velocity
-    stays finite and close to the exact per-step coupling."""
-    from lb2d_tpu.models.surfactant import SurfactantNutrientWave
-
-    kw = dict(Lx=1.0, Ly=1.0, vc=1.0, lam=0.5, R0=0.2, N=128)
-    exact = SurfactantNutrientWave(**kw)
-    stale = SurfactantNutrientWave(stale_velocity=4, **kw)
-    assert stale.backend == "kernel" and stale.steps_per_call == 4
-    exact.run(16)
-    stale.run(16)
-    a = exact.get_fields()["rho"]
-    b = stale.get_fields()["rho"]
-    assert np.isfinite(b).all()
-    err = np.abs(a - b).max() / np.abs(a).max()
-    assert 0 <= err < 5e-3, err

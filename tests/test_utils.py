@@ -125,32 +125,6 @@ def test_run_zero_steps_is_noop():
     assert sim.steps_taken == 0
 
 
-def test_run_below_steps_per_call_uses_remainder_path():
-    """A temporal-blocked model asked for fewer steps than one sweep must
-    fall back to single XLA steps and match a plain-XLA twin exactly."""
-    from lb2d_tpu.models.diffusion import Diffusion
-
-    sim = Diffusion(Lx=0.21, Ly=0.21, z=0.1, N=63)
-    sim.steps_per_call = 4
-    sim._single_step = sim._make_xla_step()
-    sim._step = sim._make_temporal_step(
-        4, __import__("lb2d_tpu.ops.fused", fromlist=["x"])
-        .make_temporal_pipe_step, interpret=True)
-    import jax
-    from functools import partial
-    from lb2d_tpu.models.base import _run_loop
-    sim._run_compiled = jax.jit(partial(_run_loop, sim._step),
-                                donate_argnums=0)
-    twin = Diffusion(Lx=0.21, Ly=0.21, z=0.1, N=63)
-    step = twin._make_xla_step()
-    ref = twin.state
-    for _ in range(3):
-        ref = step(ref)
-    sim.run(3)  # 3 < steps_per_call: pure remainder path
-    d = float(np.abs(np.asarray(sim.state) - np.asarray(ref)).max())
-    assert d < 1e-6, d
-
-
 def test_field_animator_multifield():
     """FieldAnimator falls back to get_fields for models without
     device_field and renders a uint8 frame."""
